@@ -1,10 +1,10 @@
-"""fortran_davidson_tpu — a TPU-native block-Davidson eigensolver framework.
+"""fortran_davidson_tpu — a block-Davidson eigensolver for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 NLESC-JCER/Fortran_Davidson: lowest-k eigenpairs of diagonal-dominant
 symmetric (generalized) eigenproblems via block Davidson with DPR or GJD
 corrections, over dense, sparse, or matrix-free operators, single-chip or
-sharded across a TPU mesh.
+sharded across a device mesh.
 """
 
 from fortran_davidson_tpu.batched import eigensolve_batched

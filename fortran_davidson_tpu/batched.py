@@ -4,10 +4,11 @@ The reference solves one pencil per program invocation (its drivers call
 ``generalized_eigensolver`` on a single matrix, ``src/davidson.f90:
 601-625``); screening workloads — parameter sweeps, k-point samplings,
 per-molecule Hamiltonians — then pay a full program launch and leave the
-MXU idle on every small solve. On TPU the economics invert: ``vmap`` of
+matmul units idle on every small solve. On an accelerator the economics
+invert: ``vmap`` of
 the whole padded while-loop engine over a leading batch axis turns every
 Gram matmul, projected eigh, and operator application into one batched
-MXU op across the fleet of problems, and XLA compiles exactly one
+op across the fleet of problems, and XLA compiles exactly one
 program. This is only possible because the engine was designed
 fixed-shape from the start (padded basis, masked activity, ``lax.cond``
 branches) — the batching rule masks per-problem state updates by each

@@ -2,7 +2,7 @@
 
 The reference has no persistence at all — its only "restart" is the
 in-memory basis collapse (``src/davidson.f90:218,438``) and its only file
-I/O is test text dumps. For pod-scale runs the TPU framework checkpoints
+I/O is test text dumps. For long runs this framework checkpoints
 the full solver state pytree ``(V, AV[, BV], iteration, convergence
 masks, history)`` every N iterations and resumes bit-exactly: the loop
 state is explicit (``core.loop.init_state``), so a restored solve
@@ -26,6 +26,7 @@ from fortran_davidson_tpu.core.loop import get_stepper, run_chunked
 from fortran_davidson_tpu.ops.operators import as_operator
 from fortran_davidson_tpu.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu.utils.errors import (InvalidOptionsError,
+                                               MissingDependencyError,
                                                OperatorError, require)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -90,9 +91,19 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1][0] if steps else None
 
 
+def _orbax():
+    """``orbax.checkpoint``, imported on first use (optional dependency)."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise MissingDependencyError(
+            "checkpointing needs orbax: pip install orbax-checkpoint") from e
+    return ocp
+
+
 def save_state(directory: str, state: dict) -> str:
     """Write the solver state pytree as ``step_<it>`` under ``directory``."""
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     step = int(state["it"])
     path = os.path.join(os.path.abspath(directory), f"step_{step}")
@@ -108,7 +119,7 @@ def restore_state(directory: str, template: dict,
     ``template`` supplies the pytree structure/shardings — use the
     stepper's ``init(A, B)`` output (or ``jax.eval_shape`` thereof).
     """
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     steps = _step_dirs(os.path.abspath(directory))
     if not steps:
@@ -163,7 +174,7 @@ def eigensolve_checkpointed(matrix, lowest: int, directory: str,
     With ``mesh``, the solve runs row-sharded
     (:func:`~fortran_davidson_tpu.parallel.sharded.eigensolve_sharded`
     semantics) and orbax persists/restores the sharded state — the
-    long-pod-run combination the checkpointing exists for.
+    long-run combination the checkpointing exists for.
     """
     opts = merge_options(options, overrides)
     dt = canonical_dtype(opts.dtype)
@@ -207,7 +218,7 @@ def eigensolve_checkpointed(matrix, lowest: int, directory: str,
         template = jax.eval_shape(lambda: init(A, B))
         if mesh is not None:
             # Attach the CURRENT mesh's shardings so orbax reshards on
-            # load — a pod resume may run on a different topology than
+            # load — a resume may run on a different topology than
             # the one that wrote the checkpoint (fewer/more hosts after
             # an elastic restart); without explicit shardings orbax
             # falls back to the sharding file recorded at save time,

@@ -36,16 +36,14 @@ class DavidsonOptions:
       max_dim_sub: maximum subspace dimension before collapse
         (default ``10 * lowest``, reference ``src/davidson.f90:115-119``).
         At large row counts the default is additionally clamped so the
-        tall carries fit the per-device HBM budget
-        (``FDT_CARRY_BUDGET_BYTES``, default 12 GB — v5e-calibrated):
-        round 4 measured that ``eigensolve(op, 20)`` at 10M rows with an
-        unclamped 200-wide default simply cannot allocate its carries,
-        and that the widest basis that DOES fit one chip (``44``) also
-        converges 1.5x faster than the next-narrower lattice point (16
-        vs 25 refined iterations). The clamp descends the 4-wide lattice
-        from ``10 * lowest`` and floors at ``init_dim + 4`` (the
-        expansion must still fire) — at 10M/f32/k=20 it resolves to
-        exactly that measured 44 with no flags.
+        tall carries fit the per-device memory budget (see
+        :func:`device_budget_bytes`; ``FDT_CARRY_BUDGET_BYTES``
+        overrides) and, for float32, to the widest basis measured to
+        converge (``_F32_MAX_BASIS_ENTRIES``: 10M rows at 64 columns).
+        The clamp descends the 4-wide lattice from
+        ``10 * lowest`` and floors at ``init_dim + 4`` (the expansion
+        must still fire; a ``max_dim == init_dim`` basis collapses every
+        other iteration).
       init_dim: initial subspace dimension (default ``2 * lowest``).
       sticky_convergence: if True, a pair that once converged stays
         converged (dense-engine semantics, ``src/davidson.f90:173-178``);
@@ -84,9 +82,9 @@ class DavidsonOptions:
         semantics). At scale precondition: with a bounded inner budget
         on an ill-conditioned operator (condition ~ n for the diag ~ 1..n
         surrogates), unpreconditioned inner MINRES cannot reduce the
-        correction residual and the outer loop stalls (measured at 1M
-        rows f32 on TPU: "none" stalls at 40 iterations while "dpr"
-        converges in 2 and "olsen" in 3 at ~15 ms/iter).
+        correction residual and the outer loop stalls (observed at 1M
+        rows f32: "none" stalls at 40 iterations while "dpr" converges in
+        2 and "olsen" in 3).
       gjd_warm_start: recycle each outer iteration's raw GJD correction
         block as the next iteration's inner-solve initial guess (solve
         ``op δ = rhs - op(t_prev)``, ``t = t_prev + δ``, stopped at the
@@ -104,9 +102,10 @@ class DavidsonOptions:
         reference's absolute check (``src/davidson.f90:174``) — needed for
         float32 solves at scale, where the absolute residual floor grows
         with ||A||.
-      orthonormalization: "cholqr2" (TPU-native CholeskyQR2 — Gram matmul
-        + small Cholesky, all MXU/psum work) or "qr" (Householder
-        ``jnp.linalg.qr``, the reference's DGEQRF semantics; slow on TPU).
+      orthonormalization: "cholqr2" (CholeskyQR2 — Gram matmul + small
+        Cholesky, all matmul/psum work) or "qr" (Householder
+        ``jnp.linalg.qr``, the reference's DGEQRF semantics; slower at
+        tall-skinny shapes).
       expansion: "doubling" (the reference schedule — the correction
         block has as many columns as the basis, so dimensions go
         init, 2*init, 4*init, ... ``src/davidson.f90:199``; required for
@@ -115,8 +114,9 @@ class DavidsonOptions:
         padded width for large k, e.g. lowest-20 with max_dim 200:
         doubling pads to 320 columns, lowest-k to 220).
       dtype: float64 (reference parity) or float32.
-      refined: enable the double-single high-precision path (f32 TPU
-        hardware reaching the reference's real64-grade accuracy):
+      refined: enable the double-single high-precision path (f32
+        storage and arithmetic reaching the reference's real64-grade
+        accuracy):
         compensated Gram matrices in orthonormalization and projection,
         true residuals with the diagonal cancellation in exact
         two_prod/two_sum arithmetic (one extra off-diagonal operator
@@ -157,15 +157,16 @@ class DavidsonOptions:
       matmul_precision: XLA matmul precision for the whole solver trace
         (``jax.default_matmul_precision``). ``None`` (default) resolves
         to ``"float32"`` for float32 solves and leaves the platform
-        default otherwise. TPU's default bf16 operand demotion is
-        mathematically poisonous for an eigensolver: the projected
-        matrix, Ritz products, residuals, and the GJD inner Krylov all
-        inherit 8-bit-mantissa noise (measured: the GJD Olsen warm start
-        at 1M rows f32 diverges under the platform default and converges
-        in a handful of iterations at f32 precision). The solver is
-        HBM-bound at the tall-skinny shapes that dominate, so the extra
-        MXU passes are ~free. Set ``"bfloat16"`` explicitly to trade
-        accuracy for MXU throughput.
+        default otherwise. A platform default that demotes f32 operands
+        (TF32 on GPU tensor cores, 10-bit mantissa) is poisonous for an
+        eigensolver: the projected matrix, Ritz products, residuals, and
+        the GJD inner Krylov all inherit the operand noise (observed: the
+        GJD Olsen warm start at 1M rows f32 diverges under bf16-grade
+        operands and converges in a handful of iterations at f32
+        precision). The solver is memory-bound at the tall-skinny shapes
+        that dominate, so full-precision products cost little. Set
+        ``"tensorfloat32"`` or ``"bfloat16"`` explicitly to trade
+        accuracy for matmul throughput.
       locking: freeze (deflate) converged eigenpairs out of the
         correction/expansion block — their Ritz vectors stay in the
         basis (so their eigenvalues keep being reported exactly), but no
@@ -180,10 +181,8 @@ class DavidsonOptions:
         ``(n, m_max)``; ``"chunked"`` stores them pre-chunked as
         ``(n/c, c, m_max)`` — the exact layout the compensated Gram's
         batched einsum consumes — so the ``(n, m) -> (n/c, c, m)``
-        relayout copies that dominate the refined iteration at scale
-        (~24 ms per (10M, 44) operand on the measured v5e, 2 copies per
-        iteration after CSE; see docs/ROADMAP.md "Layout wall") never
-        appear in the graph. Every consumer contracts with the same
+        relayout copies of the refined iteration never appear in the
+        graph. Every consumer contracts with the same
         per-element order, so trajectories are BIT-IDENTICAL to the
         flat layout (tests pin this). Requires ``refined=True``. Under
         the GSPMD sharded engine (round 5) chunks are sized to divide
@@ -192,32 +191,21 @@ class DavidsonOptions:
         default chunk already divides the shard (otherwise the smaller
         shard-aligned chunk changes bits, same accuracy class).
         ``"auto"`` (default) picks ``"chunked"`` whenever the
-        requirements hold and the row count admits a useful chunk —
-        measured 111 -> 75 ms/iter (1.48x) on the 10M-row refined north
-        star on v5e.
-      fused_gram: ``"auto"`` (default) lets the solver use the
-        incremental-H engine when the operator exposes a fused
-        SpMM+Gram (``matmat_with_gram`` — the banded/quantized BSR
-        Pallas kernels): the projected matrix H = VᵀAV is carried in
-        the loop state and each expansion's new columns arrive for free
-        from the fused kernel (``G = Vᵀ(AQ)`` computed while AQ is
-        still in VMEM), replacing the per-iteration full Gram
-        recomputation (reference gemms ``src/davidson.f90:131,380``).
-        Applies to float32, standard-problem, lowest-k, non-refined
-        solves on capable operators — and, under ``"auto"``, only at
-        WIDE block shapes (``lowest >= 128`` with a 128-aligned padded
-        basis): Mosaic requires 128-lane minor alignment, so a k-wide
-        expand block pads to 128 columns inside the Pallas kernel and
-        at the usual k ~ 20 the fused call reads 6.4x the x bytes (plus
-        a 2x-padded v stream) — measured 0.76x vs the two-pass engine
-        at the BSR north-star shape (BENCH_r05 ``fused_ab``), while at
-        k-block widths >= 128 the fusion's saved Gram pass wins (the
-        m=256 kernel-level sweeps). ``"on"`` forces the incremental-H
-        engine regardless of width (the structural requirements and
-        operator capability still gate); ``"off"`` disables it (exact
-        round-4 trajectory parity). The refined/compensated path never
-        uses it: the fused kernel's f32 gram accumulation is far above
-        the DS gram's precision.
+        requirements hold and the row count admits a useful chunk.
+      fused_gram: ``"on"`` runs the incremental-H engine: the projected
+        matrix H = VᵀAV is carried in the loop state and each
+        expansion's new columns come from the operator's
+        ``matmat_with_gram`` (``G = Vᵀ(AQ)``), replacing the
+        per-iteration full Gram recomputation (reference gemms
+        ``src/davidson.f90:131,380``). Applies to float32,
+        standard-problem, lowest-k, non-refined solves on operators that
+        expose ``matmat_with_gram`` (the banded/quantized BSR
+        operators, which compose it in two passes). ``"auto"`` (default)
+        engages it only when the operator provides a fused SpMM+Gram
+        kernel, which none does today, so it behaves as ``"off"``.
+        ``"off"`` disables it. The refined/compensated path never uses
+        it: an f32 gram accumulation is far above the DS gram's
+        precision.
     """
 
     method: str = "DPR"
@@ -380,22 +368,61 @@ def subspace_cap(init_dim: int, max_dim: int, step: Optional[int] = None) -> int
     return cap
 
 
-def _carry_budget_bytes() -> int:
-    """Per-device HBM budget for the solver's tall working set.
+# Budget where the device reports no memory limit (the CPU backend).
+_FIXED_CARRY_BUDGET = 12e9
 
-    Default 12 GB: one v5e chip's 16 GB minus headroom for the operator
-    itself, the runtime, and XLA scratch. Override with
-    ``FDT_CARRY_BUDGET_BYTES`` (e.g. raise it on v5p/v6e, lower it when
-    a large operator shares the chip).
+# Widest float32 basis measured to converge on the 10M-row north star
+# (NVIDIA H100, lowest-20): n_local * m_max = 10,000,384 rows * 64
+# columns. At the same n, m_max 156 did not: 30 plain-f32 iterations
+# left residuals at 0.007-0.68 and the refined stage stalled on wrong
+# eigenvalues (PERF.md). f32 rounding in the projected matrix grows with
+# the row count (||A|| ~ n for these operators) and with the basis
+# width, so the DEFAULT f32 width is held to this many basis entries.
+# One point each side of the limit; the rule is open (PERF.md).
+_F32_MAX_BASIS_ENTRIES = 10_000_384 * 64
+
+
+def _device_bytes_limit():
+    """Memory limit of the first device, or None where the backend
+    reports none (CPU)."""
+    import jax
+    stats = jax.devices()[0].memory_stats()
+    return None if not stats else stats.get("bytes_limit")
+
+
+def device_budget_bytes(operator_bytes: int = 0) -> int:
+    """Per-device memory budget for the solver's tall working set.
+
+    ``FDT_CARRY_BUDGET_BYTES`` overrides. Otherwise half of what the
+    device's memory limit leaves after the operator's own bytes — the
+    other half is headroom for XLA scratch, the refined path's extra
+    channels and transients the footprint model does not count. A device
+    that reports no limit (CPU) gets a fixed 12 GB.
     """
     import os
-    return int(float(os.environ.get("FDT_CARRY_BUDGET_BYTES", 12e9)))
+    env = os.environ.get("FDT_CARRY_BUDGET_BYTES")
+    if env is not None:
+        return int(float(env))
+    limit = _device_bytes_limit()
+    if limit is None:
+        return int(_FIXED_CARRY_BUDGET)
+    return max(int(limit) - int(operator_bytes), 0) // 2
+
+
+def operator_nbytes(*operators) -> int:
+    """Device bytes held by the operators' array leaves."""
+    import jax
+    return sum(int(getattr(leaf, "nbytes", 0))
+               for op in operators if op is not None
+               for leaf in jax.tree_util.tree_leaves(op))
 
 
 def _memory_clamped_max_dim(max_dim: int, *, n_local: int, lowest: int,
                             init_dim: int, step: Optional[int],
-                            itemsize: int, generalized: bool) -> int:
-    """Clamp the DEFAULT ``max_dim`` so the tall carries fit HBM.
+                            itemsize: int, generalized: bool,
+                            budget: Optional[int] = None) -> int:
+    """Clamp the DEFAULT ``max_dim`` so the tall carries fit the
+    per-device budget (``budget``; default :func:`device_budget_bytes`).
 
     Footprint model (deliberately conservative): the engine carries
     ``V`` and ``AV`` (plus ``BV`` when generalized) at the padded width
@@ -410,26 +437,31 @@ def _memory_clamped_max_dim(max_dim: int, *, n_local: int, lowest: int,
     The clamp descends the 4-wide lattice from the 10*k default until
     the model fits the budget, flooring at ``init_dim + 4`` so the
     expansion schedule can still fire (a ``max_dim == init_dim`` basis
-    collapses every other iteration — measured 25 vs 16 iterations at
-    the 10M north star, docs/BENCHMARKS.md round 4). The floor itself
-    was validated on hardware: ``max_dim_sub=44`` (= 2*20 + 4) is the
-    widest lowest-20 basis that fits one v5e chip at 10M rows, and the
-    model's residual overshoot there is the transient-doubling term,
-    which XLA's buffer reuse makes briefer than the model assumes.
+    collapses every other iteration).
     """
     n_carries = 3 if generalized else 2
     aux = 8 * lowest
+    if budget is None:
+        budget = device_budget_bytes()
+    return _narrowed_max_dim(
+        max_dim, init_dim, step,
+        lambda m_max: (itemsize * n_local * (2 * n_carries * m_max + aux)
+                       <= budget))
 
-    def fits(md: int) -> bool:
-        m_max = subspace_cap(init_dim, md, step)
-        return (itemsize * n_local * (2 * n_carries * m_max + aux)
-                <= _carry_budget_bytes())
+
+def _narrowed_max_dim(max_dim: int, init_dim: int, step: Optional[int],
+                      fits) -> int:
+    """The widest ``max_dim`` on the 4-wide lattice at or below
+    ``max_dim`` whose padded width ``m_max`` satisfies ``fits(m_max)``,
+    flooring at ``init_dim + 4``."""
+    def ok(md: int) -> bool:
+        return fits(subspace_cap(init_dim, md, step))
 
     floor = init_dim + 4
-    if max_dim <= floor or fits(max_dim):
+    if max_dim <= floor or ok(max_dim):
         return max_dim
     md = max_dim - (max_dim % 4 or 4)
-    while md > floor and not fits(md):
+    while md > floor and not ok(md):
         md -= 4
     return max(md, floor)
 
@@ -459,16 +491,14 @@ def _resolve_carry_layout(opts: DavidsonOptions, n: int, sharded: bool,
                           shard_row_divisor: int = 1) -> str:
     """Resolve ``carry_layout="auto"`` against the concrete problem.
 
-    Chunked wins (measured 1.48x per refined iteration at 10M rows on
-    v5e) whenever its requirements hold: the refined compensated-Gram
-    pipeline with CholeskyQR2, and a row count whose largest
-    power-of-two chunk divisor is big enough that the batched Gram
-    einsum stays MXU-shaped (a prime-ish n would degrade the chunk
-    toward 1 row and serialize the reduction). Round 5: the GSPMD
-    engine qualifies too — chunks are sized to divide the per-shard row
-    count (``utils.ds._chunk_sharded``), so the (n/c, c, m) carries
-    row-shard on chunk boundaries and the layout win reaches the pod
-    path.
+    Chunked is chosen whenever its requirements hold: the refined
+    compensated-Gram pipeline with CholeskyQR2, and a row count whose
+    largest power-of-two chunk divisor is big enough that the batched
+    Gram einsum stays matmul-shaped (a prime-ish n would degrade the
+    chunk toward 1 row and serialize the reduction). The GSPMD engine
+    qualifies too — chunks are sized to divide the per-shard row count
+    (``utils.ds._chunk_sharded``), so the (n/c, c, m) carries row-shard
+    on chunk boundaries.
     """
     if opts.carry_layout != "auto":
         return str(opts.carry_layout)
@@ -482,7 +512,11 @@ def _resolve_carry_layout(opts: DavidsonOptions, n: int, sharded: bool,
 
 def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
                     generalized: bool, sharded: bool = False,
-                    shard_row_divisor: int = 1) -> ResolvedConfig:
+                    shard_row_divisor: int = 1,
+                    operator_bytes: int = 0) -> ResolvedConfig:
+    """Options resolved against a concrete problem. ``operator_bytes``:
+    the operators' bytes on each device, subtracted from the memory
+    budget of the default-width clamp."""
     require(1 <= lowest, InvalidOptionsError, "lowest must be >= 1")
     cheb_auto = opts.cheb_degree == "auto"
     cheb_on = cheb_auto or opts.cheb_degree >= 2
@@ -508,16 +542,22 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
         while max_dim > init_dim and subspace_cap(init_dim, max_dim,
                                                   step) > n:
             max_dim //= 2
-        # ... and so the tall carries fit the per-device HBM budget at
-        # large n (round 5 — see the max_dim_sub attribute docs; the
-        # small-n parity schedules above are never touched: the memory
-        # clamp only fires when the footprint model exceeds ~12 GB).
+        # ... and so the tall carries fit the per-device memory budget
+        # at large n (see the max_dim_sub attribute docs; the small-n
+        # parity schedules above are never touched: the clamp only fires
+        # when the footprint model exceeds the budget).
+        n_local = n // max(shard_row_divisor if sharded else 1, 1)
+        itemsize = jnp.dtype(opts.dtype).itemsize
         max_dim = _memory_clamped_max_dim(
-            max_dim, n_local=n // max(shard_row_divisor if sharded else 1,
-                                      1),
-            lowest=lowest, init_dim=init_dim, step=step,
-            itemsize=jnp.dtype(opts.dtype).itemsize,
-            generalized=generalized)
+            max_dim, n_local=n_local, lowest=lowest, init_dim=init_dim,
+            step=step, itemsize=itemsize, generalized=generalized,
+            budget=device_budget_bytes(operator_bytes))
+        if itemsize < 8:
+            # ... and, in float32, to the widest basis measured to
+            # converge (see _F32_MAX_BASIS_ENTRIES).
+            max_dim = _narrowed_max_dim(
+                max_dim, init_dim, step,
+                lambda m_max: n_local * m_max <= _F32_MAX_BASIS_ENTRIES)
     m_max = subspace_cap(init_dim, max_dim, step)
     require(m_max <= n, InvalidOptionsError,
             f"padded subspace width {m_max} exceeds matrix dimension {n}; "

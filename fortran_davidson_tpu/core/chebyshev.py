@@ -11,8 +11,8 @@ unwanted part — each collapse then behaves like many power iterations
 toward the wanted invariant subspace at the cost of ``d`` extra block
 operator applications per collapse (collapses are 1-in-log iterations).
 
-TPU shape: the filter is a three-term block recurrence of operator
-applications — exactly the solver's hot op (MXU SpMM on (n, init_dim)
+Shape: the filter is a three-term block recurrence of operator
+applications — exactly the solver's hot op (SpMM on (n, init_dim)
 blocks), jit-friendly (``fori_loop``, static degree), and sharding
 transparent (the recurrence is elementwise in the sharded row dimension).
 

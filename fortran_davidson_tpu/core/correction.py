@@ -1,9 +1,9 @@
 """Correction-vector schemes: DPR and GJD.
 
 Mirrors the pluggable correction layer of the reference
-(``src/davidson.f90:630-752``) with TPU-native math:
+(``src/davidson.f90:630-752``) with block-vectorized math:
 
-- DPR (Diagonal-Preconditioned-Residue): one fused elementwise VPU op over
+- DPR (Diagonal-Preconditioned-Residue): one fused elementwise op over
   the whole residual block, ``corr[i, j] = r[i, j] / (lambda_j * B_ii -
   A_ii)`` (generalized; B_ii = 1 reproduces the standard form
   ``r / (lambda_j - A_ii)``, reference ``src/davidson.f90:688-696`` and
@@ -128,15 +128,16 @@ def gjd_correction(apply_a: Callable, apply_b: Optional[Callable], lam, X, R,
         Ritz vectors, overshoot-guarded like the Olsen start, and —
         where a nonzero previous correction exists — preferred over it.
 
-    The correction solve always runs under f32 matmul precision: TPU's
-    default bf16 operand demotion corrupts the MINRES three-term
+    The correction solve always runs under f32 matmul precision: a
+    platform default that demotes f32 operands (TF32 on GPU tensor
+    cores) corrupts the MINRES three-term
     recurrence (the inner Krylov is the most demotion-sensitive piece of
     the solver). NOTE this local pin is a guard for standalone use only —
     it is NOT sufficient for the full solve: the Gram/Ritz/residual
     matmuls in the outer loop are equally poisoned (measured: GJD+Olsen
     at 1M rows f32 diverges unless the WHOLE loop is pinned; see
     ``core.loop._precision_ctx`` / ``DavidsonOptions.matmul_precision``).
-    CPU/f64 paths are unaffected (the context is a TPU-matmul knob), so
+    f64 paths are unaffected (the context only governs f32 matmuls), so
     reference parity pins are untouched.
     """
     with jax.default_matmul_precision("float32"):

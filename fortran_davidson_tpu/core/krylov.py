@@ -1,13 +1,13 @@
-"""Batched matrix-free MINRES (the TPU-native replacement for DSYSV in GJD).
+"""Batched matrix-free MINRES (the replacement for DSYSV in GJD).
 
 The reference's GJD correction materializes, for every Ritz pair k, the
 dense n x n projected system ``(I - x x^T)(A - lambda_k B)(I - x x^T)`` and
 solves it with DSYSV — O(n^3) per pair per iteration
 (``src/davidson.f90:719-732``). That is untenable at scale and hostile to
-TPU. Here the correction equations for *all* Ritz pairs are solved
+accelerators. Here the correction equations for *all* Ritz pairs are solved
 simultaneously with a column-batched MINRES (Paige & Saunders 1975): one
 Lanczos/MINRES state per column, all recurrences vectorized over columns,
-every inner step costing one *block* operator application (an MXU/SpMM
+every inner step costing one *block* operator application (an SpMM /
 matmul) instead of m separate solves.
 
 MINRES handles the symmetric-indefinite shifted operators (A - lambda B is

@@ -1,6 +1,6 @@
 """The block-Davidson outer loop as a jitted `lax.while_loop`.
 
-TPU-native redesign of the reference's allocating Fortran loop
+Fixed-shape redesign of the reference's allocating Fortran loop
 (``src/davidson.f90:138-229`` dense, ``:375-441`` matrix-free):
 
 - **Fixed shapes.** The basis lives in a padded buffer ``V in R^{n x m_max}``
@@ -54,13 +54,13 @@ _POLISH_POLL_AT = 4
 def _precision_ctx(cfg: ResolvedConfig):
     """Matmul-precision context for everything traced inside the solver.
 
-    TPU demotes f32 matmul operands to bf16 by default; for an
-    eigensolver that injects 8-bit-mantissa noise into the projected
+    A platform default that demotes f32 matmul operands (TF32 on GPU
+    tensor cores, 10-bit mantissa) injects operand noise into the projected
     matrix, Ritz products, residuals, and the GJD inner Krylov (measured:
     GJD+Olsen at 1M rows f32 diverges under the platform default,
     converges at f32 precision). The tall-skinny matmuls that dominate
-    are HBM-bound, so the extra MXU passes cost ~nothing. A no-op on
-    CPU/f64 — parity pins are unaffected. See
+    are memory-bound, so full-precision products cost little. A no-op on
+    f64 — parity pins are unaffected. See
     ``DavidsonOptions.matmul_precision``.
     """
     if cfg.matmul_precision is None:
@@ -122,7 +122,7 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
         spec_ub = (chebyshev.lanczos_upper_bound(A.matmat, n, dt)
                    if (cfg.cheb_degree >= 2 or cfg.cheb_auto) else None)
         # Fused-gram H seed: MUST stay inside the precision context —
-        # the default TPU bf16 operand demotion would poison the
+        # a demoted-operand platform default would poison the
         # carried projected matrix until the first collapse re-seed.
         H0 = subspace.project(V0, AV0) if cfg.fused_gram else None
     if cfg.carry_layout == "chunked":
@@ -583,16 +583,16 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
                 # them at column m in place (dynamic_update_slice aliases
                 # the while-carry — only k columns are written, vs a full
                 # (n, m_max) read-modify-write of the roll-add; writes
-                # are the scarce HBM resource on the measured v5e). The
+                # are the scarcer memory traffic). The
                 # basis stays a hole-free prefix via the live count.
                 V2 = t_write(V, Q, m)
                 if fused:
-                    # The Davidson hot pair in ONE operator sweep: AQ
-                    # and its projection against the post-write basis,
-                    # G = V2ᵀ(AQ), computed while AQ is still in VMEM
-                    # (two-pass composition on non-Pallas backends —
-                    # same math). G's rows/columns ARE the new entries
-                    # of the carried projected matrix; columns beyond
+                    # The Davidson hot pair: AQ and its projection
+                    # against the post-write basis,
+                    # G = V2ᵀ(AQ) (the operators compose it in two
+                    # passes; a fused kernel would keep AQ on chip).
+                    # G's rows/columns ARE the new entries of the
+                    # carried projected matrix; columns beyond
                     # the live count are zero (zero Q columns), exactly
                     # matching the recomputed-Gram state.
                     AQ2, G = A.matmat_with_gram(Q, v=V2)
@@ -751,7 +751,7 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             # Trial-polish certification (round 5): at the FIRST short
             # plateau, ask the polish whether the k pairs already
             # certify at the user's tolerance — the measured 10M
-            # histories (docs/ROADMAP.md round-5 notes) show the DS
+            # residual histories show the DS
             # polish closes to 1e-11 from the first f32-floor plateau
             # (~3e-4), so iterating past it is waste, and the noise
             # windows' exact firing time is chaotic in the

@@ -1,11 +1,11 @@
-"""Masked block orthonormalization (TPU-native replacement for DGEQRF/DORGQR).
+"""Masked block orthonormalization (replacement for DGEQRF/DORGQR).
 
 The reference re-orthonormalizes the *entire* grown basis with a full
 Householder QR every expansion (``src/davidson.f90:213`` ->
 ``src/lapack_wrapper.f90:176-236``), which costs O(n m^2) and — crucially
 for us — rewrites every column, invalidating any cached A@V.
 
-The TPU build instead keeps the existing basis columns untouched and
+This framework instead keeps the existing basis columns untouched and
 orthonormalizes only the *new* block against them with CGS2 (classical
 Gram-Schmidt applied twice — "twice is enough", Giraud et al.), followed by
 an intra-block thin QR. In exact arithmetic the resulting span equals the
@@ -179,11 +179,11 @@ def cholqr_once(X, unit_diag=None, jitter: float = 0.0,
                 precise: bool = False):
     """One CholeskyQR pass: X = Q R via R = chol(X^T X)^T, Q = X R^{-1}.
 
-    All heavy work is one Gram matmul (MXU; a psum under row sharding)
-    plus an m x m Cholesky/triangular solve — the TPU-native shape of
+    All heavy work is one Gram matmul (a psum under row sharding)
+    plus an m x m Cholesky/triangular solve — the accelerator shape of
     tall-skinny QR, replacing the Householder DGEQRF/DORGQR of the
     reference (``src/lapack_wrapper.f90:176-236``) which XLA lowers to a
-    slow sequential loop on TPU.
+    slow sequential loop.
 
     ``unit_diag``: optional (m,) 0/1 mask; positions with 0 get a unit
     Gram diagonal so exactly-zero (padded) columns pass through as zero
@@ -205,7 +205,7 @@ def cholqr_once(X, unit_diag=None, jitter: float = 0.0,
             G.shape[0], dtype=G.dtype)
     L = jnp.linalg.cholesky(G)
     # Q = X L^{-T} via an explicit m x m triangular inverse + GEMM (the
-    # standard GPU/TPU CholQR formulation) — solving against ``X.T``
+    # standard GPU CholQR formulation) — solving against ``X.T``
     # would transpose the whole tall block (full-array relayout, see
     # ``_tall_gram_dot``). The inverse's extra rounding is second-order
     # and the CholQR2 second pass cleans it up.

@@ -1,8 +1,8 @@
-"""High-precision (refined) residuals and Rayleigh quotients on f32 TPUs.
+"""High-precision (refined) residuals and Rayleigh quotients in f32 storage.
 
 The reference runs everything in real64
 (``/root/reference/src/numeric_kinds.f90:10``) and checks absolute
-residuals at 1e-8 (``src/davidson.f90:174``). TPU hardware is f32; a naive
+residuals at 1e-8 (``src/davidson.f90:174``). With f32 storage a naive
 f32 solve floors at ~sqrt(n)*eps ~ 1e-4..1e-3 residual at the 1M..10M-row
 scale (round-1 measurement). This module restores f64-grade *measurement
 and attainment* of small residuals using double-single arithmetic
@@ -97,7 +97,7 @@ def _ds_col_norms(R: DS):
 
 def _ds_matmul_cols(M_ds: DS, Wk) -> DS:
     """``M @ Wk`` with M an (m, m) DS matrix, exact to ~eps² (m is the
-    small projected dimension — O(m²k) VPU work)."""
+    small projected dimension — O(m²k) elementwise work)."""
     p, e = dsm.two_prod(M_ds.hi[:, :, None], Wk[None, :, :])  # (m, m, k)
     my = dsm.ds_sum_tree(p.transpose(1, 0, 2), axis=0,
                          lo=e.transpose(1, 0, 2))
@@ -183,7 +183,7 @@ def refined_pairs(A_off, diag_a, X, B_off=None, diag_b=None) -> RefinedPairs:
     """Refined eigenvalues + true residuals for the column block ``X``.
 
     One off-diagonal operator application per operator (the only O(nnz)
-    work); everything else is compensated elementwise/reduction VPU math.
+    work); everything else is compensated elementwise/reduction math.
     ``X`` need not be perfectly normalized — the Rayleigh quotient divides
     by the compensated ``xᵀBx``.
     """

@@ -61,4 +61,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from fortran_davidson_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -1,4 +1,4 @@
-"""Demo driver — the reference's ``main`` executable, TPU-native.
+"""Demo driver — the reference's ``main`` executable.
 
 Mirrors ``src/main.f90:31-75``: a dim-100 generalized problem solved with
 GJD then DPR at tol 1e-5 / max subspace 10, followed by the same two
@@ -68,4 +68,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from fortran_davidson_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -1,36 +1,25 @@
 """North-star workload: lowest-k eigenpairs of a 10M-row operator.
 
 BASELINE.json's headline target is the lowest eigenpairs of a 10M-row
-diagonal-dominant sparse matrix on a pod slice. This driver runs that
-shape end to end:
+diagonal-dominant sparse matrix. This driver runs that shape end to end:
 
 - ``--mode free`` (default): the separable matrix-free surrogate
-  (O(n m) per application — no stored matrix), feasible on a single
-  chip at n = 10M in float32;
-- ``--mode banded``: a banded BSR operator in bf16 storage with the
-  windowed-DMA Pallas kernel. Single-chip HBM (v5e, 16 GB) holds this up
-  to ~2.6M rows (measured: 63 ms/iter, converged at the bf16 operator
-  floor ~4e-3); the full 10M-row banded target is a pod workload
-  (--sharded on a slice), exactly as BASELINE.json frames it;
+  (O(n m) per application — no stored matrix), float32;
+- ``--mode banded``: a DIA-banded BSR operator with f32 blocks, or with
+  ``--quantize`` int8 off-diagonal blocks plus the exact f32 diagonal
+  (the operator's default backend takes the Pallas kernel on a GPU);
 - ``--sharded``: row-shard the solve over every available device
   (single host) or every device in the job (after
-  ``parallel.multihost.initialize()`` on pods).
+  ``parallel.multihost.initialize()``).
 
 Run: ``python -m fortran_davidson_tpu.examples.northstar --n 10000384``
 
-The LITERAL BASELINE north star — lowest-20 of 10M rows to honest 1e-8
-— fits ONE v5e chip. Since round 5 no basis-width flag is needed: the
-default resolver clamps ``max_dim_sub`` to the measured-best single-chip
-shape (44 — wider collapses transiently double the tall carries past
-16 GB HBM; see ``DavidsonOptions.max_dim_sub``)::
+The literal BASELINE north star — lowest-20 of 10M rows to honest 1e-8
+on one device; the default resolver sizes the basis width from the
+device's memory (``config.device_budget_bytes``)::
 
     python -m fortran_davidson_tpu.examples.northstar --lowest 20 \\
         --progressive --tolerance 1e-8 --expansion lowest-k
-
-Measured (v5e): round 4 6.68 s warm / 24 refined iterations; round 5
-**4.60 s / 17 iterations** after the trial-polish certification exit
-(CHANGELOG 0.6.0) — all 20 pairs converged, true residuals <= 2.0e-10
-(needs the DS operator apply, CHANGELOG 0.5.0).
 """
 
 from __future__ import annotations
@@ -39,16 +28,14 @@ import argparse
 import time
 
 
-def main(argv=None) -> int:
+def _parse(argv):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--n", type=int, default=10_000_384)
     parser.add_argument("--lowest", type=int, default=4)
     # float32 residual floor at n=10M is ~1-2.5e-3 (wide-spectrum Gram
-    # roundoff); measured on v5e: 4 iterations, 0.65 s warm, exact
-    # eigenvalues at this tolerance. With --refined the floor drops to
-    # ~3.5e-5 absolute (f32 basis-storage limit; measured at 259
-    # ms/iter) — use --tolerance 1e-4 there, and --polish for 1e-11-
-    # grade final residuals.
+    # roundoff). With --refined the floor drops to ~3.5e-5 absolute (f32
+    # basis-storage limit) — use --tolerance 1e-4 there, and --polish
+    # for 1e-11-grade final residuals.
     parser.add_argument("--tolerance", type=float, default=3e-3)
     parser.add_argument("--mode", choices=["free", "banded"], default="free")
     parser.add_argument("--block-size", type=int, default=128)
@@ -56,9 +43,9 @@ def main(argv=None) -> int:
     parser.add_argument("--quantize", action="store_true",
                         help="banded mode: int8 block storage with the "
                         "exact f32 diagonal, generated+quantized on the "
-                        "HOST so the f32 table never touches HBM — the "
-                        "full 10M-row north-star banded matrix fits ONE "
-                        "v5e chip (3.8 GB of blocks vs 15.4 GB f32)")
+                        "HOST so the f32 table never touches device "
+                        "memory (3.8 GB of blocks at 10M rows vs 15.4 GB "
+                        "f32)")
     parser.add_argument("--sharded", action="store_true")
     parser.add_argument("--max-iterations", type=int, default=100)
     parser.add_argument("--expansion", choices=["doubling", "lowest-k"],
@@ -78,33 +65,32 @@ def main(argv=None) -> int:
                         "convergence is checked against the POLISHED "
                         "true residuals — the 10M-to-1e-8 north star is "
                         "`--refined --final-polish 3 --tolerance 1e-8 "
-                        "--expansion lowest-k` (measured: converged, "
-                        "2.37 s warm on one v5e chip)")
+                        "--expansion lowest-k`")
     parser.add_argument("--progressive", action="store_true",
                         help="two-stage pipeline: a cheap plain-f32 "
                         "solve to its residual floor warm-starts the "
-                        "refined solve (fastest 10M-to-1e-8 recipe: "
-                        "1.33 s warm vs 2.37 s cold refined; implies "
-                        "--refined)")
+                        "refined solve (implies --refined)")
     parser.add_argument("--carry-layout", choices=["auto", "flat", "chunked"],
                         default="auto",
                         help="refined-path storage of the tall carries; "
                         "'chunked' removes the per-iteration relayout "
-                        "copies (requires --refined; since round 5 runs "
-                        "under --sharded too, with shard-aligned chunks)")
+                        "copies (requires --refined)")
     parser.add_argument("--max-dim-sub", type=int, default=0,
                         help="subspace collapse threshold (default "
-                        "10*lowest, HBM-clamped at large n since round "
-                        "5: at 10M/f32/k=20 the default resolves to the "
-                        "measured-best 44 — 16 cold refined iterations "
-                        "vs 25 at width 40 — so this flag is only "
-                        "needed to override)")
+                        "10*lowest, clamped at large n to the device "
+                        "memory budget)")
     args = parser.parse_args(argv)
     if args.progressive:
         args.refined = True
         args.final_polish = max(args.final_polish, 3)
+    return args
 
-    import jax
+
+def run(argv=None) -> dict:
+    """Build the operator, solve twice (cold, then warm) and return
+    ``{"args", "op", "result", "cold_s", "warm_s"}``."""
+    args = _parse(argv)
+
     import jax.numpy as jnp
 
     from fortran_davidson_tpu import eigensolve
@@ -115,23 +101,15 @@ def main(argv=None) -> int:
     elif args.quantize:
         from fortran_davidson_tpu.ops.sparse import (
             generate_banded_bsr_quantized)
-        bs = args.block_size
-        nbr = args.n // bs
-        backend = ("pallas" if jax.default_backend() == "tpu" else "xla")
-        op = generate_banded_bsr_quantized(nbr, bs,
+        op = generate_banded_bsr_quantized(args.n // args.block_size,
+                                           args.block_size,
                                            bandwidth=args.bandwidth,
-                                           coupling=1e-3, backend=backend)
+                                           coupling=1e-3)
     else:
         from fortran_davidson_tpu.ops.sparse import generate_banded_bsr
-        bs = args.block_size
-        nbr = args.n // bs
-        op = generate_banded_bsr(nbr, bs, bandwidth=args.bandwidth,
-                                 coupling=1e-3, dtype=jnp.float32)
-        if jax.default_backend() == "tpu":
-            # bf16 block storage (f32 iterates/accumulation): halves the
-            # HBM footprint so 10M rows fit one chip; operator values
-            # carry bf16 representation error (~0.4% relative).
-            op = op.astype(jnp.bfloat16).with_backend("pallas")
+        op = generate_banded_bsr(args.n // args.block_size, args.block_size,
+                                 bandwidth=args.bandwidth, coupling=1e-3,
+                                 dtype=jnp.float32)
 
     common = dict(method="DPR", tolerance=args.tolerance,
                   max_iterations=args.max_iterations, dtype="float32",
@@ -151,7 +129,7 @@ def main(argv=None) -> int:
         mesh = default_mesh()
         print(f"mesh: {mesh.shape}")
 
-        def run():
+        def solve():
             if args.progressive:
                 l = eigensolve_sharded(op, args.lowest, mesh, **loose)
                 return eigensolve_sharded(
@@ -159,7 +137,7 @@ def main(argv=None) -> int:
                     initial_vectors=l.eigenvectors, **common)
             return eigensolve_sharded(op, args.lowest, mesh, **common)
     else:
-        def run():
+        def solve():
             if args.progressive:
                 l = eigensolve(op, args.lowest, **loose)
                 return eigensolve(op, args.lowest,
@@ -168,13 +146,22 @@ def main(argv=None) -> int:
             return eigensolve(op, args.lowest, **common)
 
     t0 = time.perf_counter()
-    res = run()
-    iters = int(res.iterations)  # host fetch forces completion
-    print(f"cold solve (incl. compile): {time.perf_counter() - t0:.1f} s")
+    res = solve()
+    int(res.iterations)  # host fetch forces completion
+    cold = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = run()
+    res = solve()
+    int(res.iterations)
+    warm = time.perf_counter() - t0
+    return dict(args=args, op=op, result=res, cold_s=cold, warm_s=warm)
+
+
+def main(argv=None) -> int:
+    out = run(argv)
+    args, op, res = out["args"], out["op"], out["result"]
     iters = int(res.iterations)
-    dt = time.perf_counter() - t0
+    dt = out["warm_s"]
+    print(f"cold solve (incl. compile): {out['cold_s']:.1f} s")
     print(f"warm solve: {dt:.2f} s  ({dt / max(iters, 1) * 1e3:.1f} ms/iter), "
           f"{iters} iterations, converged={bool(res.converged)}")
     print("eigenvalues:", [f"{float(v):.6f}" for v in res.eigenvalues])
@@ -193,4 +180,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from fortran_davidson_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

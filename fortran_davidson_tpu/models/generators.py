@@ -1,6 +1,6 @@
 """Problem generators (test fixtures and benchmark workloads).
 
-TPU-native counterparts of the reference's fixtures:
+Counterparts of the reference's fixtures:
 
 - :func:`generate_diagonal_dominant` mirrors
   ``src/array_utils.f90:86-113``: random symmetric off-diagonal entries of
@@ -10,7 +10,7 @@ TPU-native counterparts of the reference's fixtures:
   (``src/tests/test_utils.f90:37-116``, ``src/benchmark_free.f90:38-76``)
   with *separable* low-rank-plus-diagonal operators: trig off-diagonals
   like ``cos(theta_i + theta_j)`` expand as rank-2 outer products, so the
-  matrix-free apply is O(n m) MXU work instead of the reference's O(n^2)
+  matrix-free apply is O(n m) matmul work instead of the reference's O(n^2)
   row regeneration — the same "electronic-structure surrogate" character
   (dominant diagonal ~ orbital energies, small dense coupling) at any n,
   including the 10M-row north-star scale.
@@ -73,7 +73,7 @@ def _rank2_trig_factors(n: int, dtype):
 def low_rank_plus_diag_apply(X, diag, factors, weights):
     """Apply diag(d) + sum_r w_r u_r u_r^T (diagonal of the low-rank part
     removed, so `diag` is the exact operator diagonal)."""
-    # Low-rank part: U (n, r); U^T X is (r, m) — two skinny MXU matmuls.
+    # Low-rank part: U (n, r); U^T X is (r, m) — two skinny matmuls.
     U = factors  # (n, r)
     coeff = jnp.dot(U.T, X, preferred_element_type=X.dtype)  # (r, m)
     low = jnp.dot(U * weights[None, :], coeff,
@@ -99,7 +99,7 @@ def low_rank_offdiag_apply_ds(x_hi, x_lo, diag, factors, weights):
     SMALL-RANK ASSUMPTION: the compensated gram runs one Dot2 pass per
     factor column (each broadcasting that column to the full (n, k)
     block) and the reconstruction is an r-term outer-product cascade —
-    O(r) full-size VPU passes total. Fine for the surrogates' r <= 2;
+    O(r) full-size elementwise passes total. Fine for the surrogates' r <= 2;
     before reusing this as a generic DS apply for wide low-rank
     operators, batch the Dot2 gram across factors (two_prod on the
     broadcast product, one compensated reduction) so the pass count
@@ -109,7 +109,7 @@ def low_rank_offdiag_apply_ds(x_hi, x_lo, diag, factors, weights):
 
     U = factors  # (n, r)
     # Fully compensated skinny gram (r, k) in DS: Dot2 per factor
-    # column (gram_ds's chunked-MXU compensation only kills the
+    # column (gram_ds's chunked-matmul compensation only kills the
     # ACROSS-chunk cancellation — its within-chunk f32 einsum still
     # rounds at ~eps·|partials|, which is the very floor this function
     # exists to remove). The lo channel's gram is first-order small —

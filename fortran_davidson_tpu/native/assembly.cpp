@@ -1,6 +1,6 @@
 // Host-side sparse assembly kernels (COO -> padded ELL).
 //
-// The TPU framework's native runtime layer: the reference's only native
+// The framework's native runtime layer: the reference's only native
 // code is the external LAPACK/BLAS binary it links against
 // (/root/reference CMakeLists.txt:29-49); the device-side equivalents of
 // those routines live in XLA/Pallas, while THIS file covers the

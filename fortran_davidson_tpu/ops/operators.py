@@ -2,13 +2,13 @@
 
 The reference exposes exactly two operator kinds through a compile-time
 generic interface (dense matrix vs. block-gemv callable,
-reference ``src/davidson.f90:601-625``). The TPU-native framework replaces
+reference ``src/davidson.f90:601-625``). This framework replaces
 that with a small ``LinearOperator`` protocol: every operator is a pytree
 (so it can flow through ``jit``/``shard_map``) that knows how to
 
 - apply itself to a *block* of vectors (``matmat``; (n, m) -> (n, m)) —
   block application is the only primitive the solver ever uses, keeping the
-  FLOPs on the MXU as batched matmuls rather than per-column gemvs
+  FLOPs in batched matmuls rather than per-column gemvs
   (the reference's dense path does one DGEMV per column per iteration,
   ``src/davidson.f90:163-170``), and
 - produce its diagonal (``diagonal``), needed by the DPR preconditioner
@@ -139,7 +139,7 @@ class DenseOperator(LinearOperator):
     """Operator backed by an in-memory dense symmetric matrix.
 
     Replaces the reference's dense engine input
-    (``src/davidson.f90:51-75``); block application is a single MXU matmul.
+    (``src/davidson.f90:51-75``); block application is a single matmul.
     """
 
     def __init__(self, matrix):
@@ -232,7 +232,7 @@ class MatrixFreeOperator(LinearOperator):
       we fall back to *blocked* probing (:func:`probe_diagonal`), which
       costs ``ceil(n / block)`` block applications instead of ``n``.
     - the callable receives a block, never a single column, so the user's
-      implementation can be a fused SpMM/einsum on the MXU.
+      implementation can be a fused SpMM/einsum.
 
     ``fn`` is static (part of the pytree structure); closures over arrays
     should instead capture them via ``captured`` so they are traced.
@@ -348,11 +348,11 @@ def from_element_fn(fn: Callable, n: int, dtype=jnp.float64,
                     diag=None, row_block: int = 256) -> MatrixFreeOperator:
     """Operator defined by an element function ``fn(i, j) -> A_ij``.
 
-    TPU-native counterpart of the reference's ``free_matmul``
+    Counterpart of the reference's ``free_matmul``
     (``src/davidson.f90:526-569``), which regenerates matrix rows on the
     fly from a column function and dot-products them against the basis
     inside an OpenMP loop. Here rows are generated in blocks with a
-    double ``vmap`` and contracted against the input block on the MXU:
+    double ``vmap`` and contracted against the input block:
     ``A @ X`` costs ``ceil(n / row_block)`` dense ``(row_block, n) @
     (n, m)`` matmuls with O(row_block * n) transient memory.
 

@@ -1,28 +1,35 @@
-"""Pallas TPU kernels for the sparse operator layer.
+"""Pallas (Triton route) kernel for the banded block-sparse SpMM.
 
-The hot op of the whole framework is SpMM: ``Y = A @ X`` with A block
-sparse and X a tall block of basis vectors (BASELINE north star: >= 80% of
-HBM-roofline nnz/s). The XLA gather path
-(:meth:`fortran_davidson_tpu.ops.sparse.BSROperator.matmat`) materializes a
-``(nbr, K, bs, m)`` gather buffer in HBM — ~3x the minimum traffic. This
-kernel instead streams the operand blocks through VMEM:
+The hot op of the solver is ``Y = A @ X`` with A a DIA-banded block-sparse
+matrix (slot k of block row r holds the ``bs x bs`` block at block column
+``r - bw + k``; out-of-range slots hold zero blocks) and X a tall block of
+basis vectors. The plain XLA forms move more than the minimum bytes: the
+gathered form writes and reads a ``(nbr, K*bs, m)`` buffer, the DIA
+slot-sum writes and reads K partial ``(n, m)`` outputs, and int8 storage
+may be dequantized into an f32 table first. This kernel reads each stored
+block once, reads the x rows each block row needs, and writes y once:
 
-- grid = one program per 8-row tile of block rows; the stored blocks
-  (row-major block layout ``(nbr, bs, K*bs)``) arrive as normally
-  pipelined VMEM inputs and the block-column tables as per-tile SMEM
-  inputs (deliberately NOT scalar prefetch: SMEM-resident prefetch
-  tables scale with ``nbr`` and overflow SMEM / explode compile time
-  beyond ~1k block rows);
-- per block row, the K gathered ``(bs, m)`` input slices are fetched
-  from HBM with manual double-buffered ``make_async_copy`` DMAs into a
-  stacked ``(K*bs, m)`` buffer, overlapping the next row's transfers
-  with the current row's single ``(bs, K*bs) @ (K*bs, m)`` MXU
-  contraction — one large dot per block row instead of K small ones;
-- mixed precision: bf16 blocks/x with float32 accumulation via
-  ``preferred_element_type`` (pass ``out_dtype=jnp.float32``).
+- one program per (block row, tile of ``TR`` rows, tile of ``TM``
+  columns); the K = 2*bw+1 band slots are looped inside the program;
+- bf16 blocks run bf16 tensor-core dots with f32 accumulation;
+- int8 blocks (the quantized off-diagonal part) are exact in bf16, so the
+  f32 input is split into three bf16 words and contracted with three
+  tensor-core dots (f32-grade products); the per-(row, slot) scale
+  multiplies the slot's partial and the exact f32 diagonal is added in
+  the epilogue;
+- f32 blocks are not taken: a true-f32 (``allow_tf32=False``) Triton dot
+  runs on CUDA cores and measured several times slower than XLA's f32
+  GEMM (PERF.md);
+- ``m`` is padded (in registers, by masked loads and stores) to a power
+  of two >= 16, the smallest operand ``pl.dot`` accepts.
 
-``interpret=True`` (default off-TPU) runs the same kernel under the
-Pallas interpreter for CPU tests.
+The same kernel serves the row-sharded path: there x is the shard's slab
+extended by ``bw`` halo block rows on each side (``halo=True``), so every
+slot's rows are in range.
+
+``interpret=True`` runs the kernel under the Pallas interpreter (CPU
+tests); it is only ever set by the caller. Which path an operator takes
+is decided in :func:`kernel_mode`.
 """
 
 from __future__ import annotations
@@ -32,1451 +39,198 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_TILE_R = 8  # block rows per grid step (minimum f32 sublane tile)
+from fortran_davidson_tpu.utils.errors import OperatorError
 
+# Operator ``backend`` values: "auto" takes the compiled kernel on a GPU
+# and the plain XLA path elsewhere; "pallas" demands the compiled kernel;
+# "pallas-interpret" runs the same kernel under the Pallas interpreter.
+BACKENDS = ("auto", "xla", "pallas", "pallas-interpret")
 
-def _lane_pad(m: int) -> int:
-    """Padded minor width for an m-column operand: the next multiple of
-    128. Mosaic REQUIRES 128-lane alignment for VMEM slices (probed
-    round 5: a 64-lane window buffer fails `tpu.memref_slice` with
-    "must be aligned to tiling (128)"), so narrow operands pay a full
-    (n, 128) padded copy of input and output — at 10M rows that is
-    +5.1 GB per transient in f32, the binding memory constraint of the
-    single-chip BSR north star (see bench.py northstar_10M_lowest20_bsr
-    for the budget math)."""
-    return max(128, -(-m // 128) * 128)
+_KERNEL_DTYPES = (jnp.bfloat16, jnp.int8)
 
-
-def _acc_dtype(operand_dtype):
-    """MXU accumulator dtype: Mosaic requires 32-bit accumulation for
-    sub-32-bit operands (bf16 matmuls accumulate in f32 natively)."""
-    dt = jnp.dtype(operand_dtype)
-    return jnp.dtype(jnp.float32) if dt.itemsize < 4 else dt
+# Pallas's Triton lowering indexes a ref with 32-bit offsets unless the
+# array exceeds 2**32 BYTES, so a 1-byte array of 2**31..2**32 elements
+# overflows (a 10M-row int8 table is 3.8e9). Such tables are read as
+# int16 byte pairs: half the elements, the two bytes split in registers.
+_MAX_I32_ELEMENTS = 2**31
 
 
-def _bsr_kernel(cols_ref, blocks_ref, x_hbm, out_ref, xbuf, sem):
-    R, K = cols_ref.shape
-    bs = blocks_ref.shape[1]
-
-    def start_row(slot, r):
-        for k in range(K):  # static unroll, K is small
-            col = cols_ref[r, k]
-            pltpu.make_async_copy(
-                x_hbm.at[pl.ds(col * bs, bs), :],
-                xbuf.at[slot, pl.ds(k * bs, bs), :],
-                sem.at[slot, k],
-            ).start()
-
-    def wait_row(slot, r):
-        for k in range(K):
-            col = cols_ref[r, k]
-            pltpu.make_async_copy(
-                x_hbm.at[pl.ds(col * bs, bs), :],
-                xbuf.at[slot, pl.ds(k * bs, bs), :],
-                sem.at[slot, k],
-            ).wait()
-
-    start_row(0, 0)
-
-    def body(r, carry):
-        slot = r % 2
-
-        @pl.when(r + 1 < R)
-        def _():
-            start_row(1 - slot, r + 1)
-
-        wait_row(slot, r)
-        out_ref[pl.ds(r, 1)] = jnp.dot(
-            blocks_ref[r], xbuf[slot],
-            preferred_element_type=_acc_dtype(blocks_ref.dtype),
-        )[None].astype(out_ref.dtype)
-        return carry
-
-    jax.lax.fori_loop(0, R, body, 0)
+class KernelUnavailableError(OperatorError):
+    """The compiled kernel was requested on a platform it cannot run on."""
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "out_dtype"))
-def bsr_spmm(block_cols, blocks, x, *, interpret: bool | None = None,
-             out_dtype=None):
-    """Block-sparse (block-ELL) SpMM: ``Y = A @ X``.
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def kernel_supported(bs: int, K: int, bandwidth, dtype) -> bool:
+    """Shapes and storage the kernel handles: DIA-aligned band, a
+    power-of-two block size >= 32 (``pl.dot`` operands are >= 16 on every
+    side, and int8 pairs halve the block) and bf16 or int8 blocks. Other
+    operators take the plain XLA path."""
+    return (bandwidth is not None and K == 2 * bandwidth + 1
+            and _pow2(bs) and bs >= 32
+            and any(jnp.dtype(dtype) == jnp.dtype(d) for d in _KERNEL_DTYPES))
+
+
+def kernel_mode(backend: str, supported: bool):
+    """The one place that picks an operator's apply path.
+
+    Returns ``None`` (plain XLA), ``"compiled"`` or ``"interpret"``.
+    Raises :class:`KernelUnavailableError` when ``backend="pallas"`` asks
+    for the compiled kernel off a GPU.
+    """
+    if backend not in BACKENDS:
+        raise OperatorError(f"unknown backend {backend!r} "
+                            f"(supported: {', '.join(BACKENDS)})")
+    if backend == "xla" or not supported:
+        return None
+    if backend == "pallas-interpret":
+        return "interpret"
+    on_gpu = jax.default_backend() == "gpu"
+    if backend == "pallas" and not on_gpu:
+        raise KernelUnavailableError(
+            "backend='pallas' needs a GPU (the kernel compiles through "
+            f"Triton); this process runs on {jax.default_backend()!r}. "
+            "Use backend='auto', 'xla' or 'pallas-interpret'.")
+    return "compiled" if on_gpu else None
+
+
+def _tiles(bs: int, m: int, kind: str):
+    """Row tile TR and column tile TM (powers of two, >= 16)."""
+    mp = max(16, pl.next_power_of_2(m))
+    tm = min(mp, 64)
+    tr = min(bs, 64 if kind == "int8" or tm <= 32 else 32)
+    return tr, tm
+
+
+def _split_bf16(x):
+    """x (f32) as three bf16 words whose f32 sum carries x's 24 bits."""
+    x1 = x.astype(jnp.bfloat16)
+    r1 = x - x1.astype(jnp.float32)
+    x2 = r1.astype(jnp.bfloat16)
+    x3 = (r1 - x2.astype(jnp.float32)).astype(jnp.bfloat16)
+    return x1, x2, x3
+
+
+def _int8_tile(blocks_ref, r, rows, k, bs, TR, pairs):
+    """Slot k's (TR, bs) int8 block tile as bf16 (int8 is exact in bf16).
+    With ``pairs`` the table is int16 byte pairs: the low byte holds the
+    even column and the high byte the odd one (little endian); joining
+    them along a new minor axis restores the column order."""
+    if not pairs:
+        return blocks_ref[r, rows, pl.ds(k * bs, bs)].astype(jnp.bfloat16)
+    w = blocks_ref[r, rows, pl.ds(k * bs // 2, bs // 2)]
+    lo = jnp.right_shift(jnp.left_shift(w, 8), 8)   # sign-extended byte
+    hi = jnp.right_shift(w, 8)
+    q = jnp.concatenate([lo[:, :, None], hi[:, :, None]], axis=-1)
+    return q.reshape(TR, bs).astype(jnp.bfloat16)
+
+
+def _banded_kernel(*refs, K, bw, bs, TR, TM, m, nbx, shift, kind, pairs):
+    if kind == "int8":
+        blocks_ref, scale_ref, diag_ref, x_ref, y_ref = refs
+    else:
+        blocks_ref, x_ref, y_ref = refs
+    r = pl.program_id(0)
+    rows = pl.ds(pl.program_id(1) * TR, TR)
+    c0 = pl.program_id(2) * TM
+    cols = pl.ds(c0, TM)
+    col_ok = (c0 + jnp.arange(TM) < m)[None, :]
+
+    acc = jnp.zeros((TR, TM), jnp.float32)
+    for k in range(K):
+        xr = r + k - bw + shift                      # block row of x
+        ok = (xr >= 0) & (xr < nbx)
+        start = jnp.clip(xr, 0, nbx - 1) * bs
+        xk = plgpu.load(x_ref.at[pl.ds(start, bs), cols],
+                        mask=ok & col_ok, other=0.0).astype(jnp.float32)
+        if kind == "int8":
+            # x as three bf16 words keeps f32-grade products on the
+            # tensor cores.
+            q = _int8_tile(blocks_ref, r, rows, k, bs, TR, pairs)
+            x1, x2, x3 = _split_bf16(xk)
+            p = pl.dot(q, x3, allow_tf32=False)
+            p = p + pl.dot(q, x2, allow_tf32=False)
+            p = p + pl.dot(q, x1, allow_tf32=False)
+            acc = acc + scale_ref[r, k * bs] * p
+        else:
+            a = blocks_ref[r, rows, pl.ds(k * bs, bs)]
+            acc = acc + pl.dot(a, xk.astype(jnp.bfloat16), allow_tf32=False)
+    if kind == "int8":
+        ctr = (r + shift) * bs + pl.program_id(1) * TR
+        xc = plgpu.load(x_ref.at[pl.ds(ctr, TR), cols], mask=col_ok,
+                        other=0.0).astype(jnp.float32)
+        acc = acc + diag_ref[r, rows][:, None] * xc
+    plgpu.store(y_ref.at[pl.ds(r * bs + pl.program_id(1) * TR, TR), cols],
+                acc.astype(y_ref.dtype), mask=col_ok)
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "bandwidth", "halo", "out_dtype", "interpret", "pairs"))
+def banded_spmm(blocks, x, scale_rows=None, diag=None, *, bandwidth: int,
+                halo: bool = False, out_dtype=None, interpret: bool = False,
+                pairs=None):
+    """DIA-banded block-sparse SpMM ``Y = A @ X``.
 
     Args:
-      block_cols: (nbr, K) int32 block-column indices (padded slots may
-        point anywhere in range; their blocks must be zero).
-      blocks: (nbr, bs, K*bs) dense blocks, row-major block layout
-        (``BSROperator`` storage): columns [k*bs, (k+1)*bs) hold block k.
-      x: (nbc * bs, m) input block of vectors.
-      interpret: run under the Pallas interpreter (defaults to True off-TPU
-        so tests exercise the identical kernel on CPU).
-      out_dtype: accumulation/output dtype (defaults to ``x.dtype``; pass
-        ``jnp.float32`` with bf16 inputs for mixed-precision SpMM).
+      blocks: (nbr, bs, K*bs) row-major block layout, K = 2*bandwidth+1,
+        bf16 or int8 (int8: the quantized OFF-diagonal part).
+      x: (nbr*bs, m); with ``halo=True`` ((nbr + 2*bandwidth)*bs, m), the
+        rows framed by ``bandwidth`` halo block rows on each side.
+      scale_rows: (nbr, K*bs) f32 per-slot scales (int8 only; the scale
+        of slot k is read at lane ``k*bs``).
+      diag: (nbr, bs) f32 exact matrix diagonal (int8 only).
+      out_dtype: output dtype (defaults to ``x.dtype``).
+      interpret: run under the Pallas interpreter.
+      pairs: read int8 blocks as int16 byte pairs; ``None`` does so
+        exactly when the table has 2**31 elements or more.
 
     Returns:
-      (nbr * bs, m) output block.
+      (nbr*bs, m) array.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x.dtype if out_dtype is None else out_dtype)
-    nbr, bs, kbs = blocks.shape
-    K = kbs // bs
-    n_in, m = x.shape
-    # Lane dimension: pad m to the 128-lane register width.
-    mp = _lane_pad(m)
-    if mp != m:
-        x = jnp.pad(x, ((0, 0), (0, mp - m)))
-    # Row-tile dimension: pad the block-row tables to a multiple of the
-    # 8-row tile (padded rows reference block 0 with zero blocks).
-    R = _TILE_R
-    if nbr % R:
-        pad_r = R - nbr % R
-        block_cols = jnp.pad(block_cols, ((0, pad_r), (0, 0)))
-        blocks = jnp.pad(blocks, ((0, pad_r), (0, 0), (0, 0)))
-    nbr_p = block_cols.shape[0]
-    blocks2 = blocks
-
-    out = pl.pallas_call(
-        _bsr_kernel,
-        grid=(nbr_p // R,),
-        in_specs=[
-            pl.BlockSpec((R, K), lambda r: (r, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=pl.BlockSpec((R, bs, mp), lambda r: (r, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, K * bs, mp), x.dtype),
-            pltpu.SemaphoreType.DMA((2, K)),
-        ],
-        out_shape=jax.ShapeDtypeStruct((nbr_p, bs, mp), out_dtype),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp,
-            bytes_accessed=(blocks.size * blocks.dtype.itemsize
-                            + nbr * K * bs * mp * x.dtype.itemsize
-                            + nbr * bs * mp * out_dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(block_cols, blocks2, x)
-    out = out[:nbr].reshape(nbr * bs, mp)
-    return out[:, :m] if mp != m else out
-
-
-_N_WINDOW_BUFFERS = 4  # ring depth: windows fetched 3 tiles ahead
-# Output write ring depth (VMEM -> HBM async copies). Swept in
-# experiments/r5_write_probe.py on v5e at the bench shape: 4 beats 3 by
-# ~1% and 2 by ~2.5% (deeper ring hides more of the ~250-260 GB/s
-# write-engine latency behind compute); the planners charge the ring's
-# VMEM (NBO * R * bs * mp * out_item), so constrained shapes degrade R
-# rather than overflow.
-_N_OUT_BUFFERS = 4
-
-
-def _banded_sweep(x_hbm, xbuf, sem, *, bs, bw, W, nbr, R, NB, compute_row,
-                  out=None, on_first_tile=None):
-    """The windowed-DMA sweep shared by every DIA banded kernel.
-
-    Drives one grid step: prefetch the input window ring depth-(NB-1)
-    ahead (edge tiles fetch only their valid span into the right buffer
-    offset and ZERO the stale remainder — it multiplies zero blocks, and
-    0 * stale-Inf/NaN would poison the accumulator), wait for this
-    tile's window, run ``compute_row(i, slot)`` for the R static rows,
-    and (optionally) stream the row results out through the async
-    VMEM->HBM write ring with its final-tile drain.
-
-    Args:
-      compute_row: ``(i, slot) -> (bs, mp) row result`` — the only part
-        that differs between the plain / quantized / fused-gram kernels.
-      out: ``(out_hbm, obuf, osem)`` to enable the write ring; ``None``
-        for write-free sweeps (the fused gram's pure-read variant).
-      on_first_tile: extra tile-0 initialization (e.g. zeroing a VMEM
-        gram accumulator).
-    """
-    tile = pl.program_id(0)
-    ntiles = pl.num_programs(0)
-    NBO = _N_OUT_BUFFERS
-    D = NB - 1  # prefetch depth
-    V = W - bw  # valid span (block rows) of an edge tile's window
-
-    def edge_top(slot):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds(0, V * bs), :],
-            xbuf.at[slot, pl.ds(bw * bs, V * bs), :], sem.at[slot])
-
-    def edge_bottom(slot):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds((nbr - V) * bs, V * bs), :],
-            xbuf.at[slot, pl.ds(0, V * bs), :], sem.at[slot])
-
-    def interior(slot, t):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds((t * R - bw) * bs, W * bs), :],
-            xbuf.at[slot], sem.at[slot])
-
-    def start_window(slot, t):
-        @pl.when(t == 0)
-        def _():
-            edge_top(slot).start()
-
-        @pl.when(t == ntiles - 1)
-        def _():
-            edge_bottom(slot).start()
-
-        @pl.when((t > 0) & (t < ntiles - 1))
-        def _():
-            interior(slot, t).start()
-
-    def wait_window(slot, t):
-        @pl.when(t == 0)
-        def _():
-            edge_top(slot).wait()
-            xbuf[slot, 0:bw * bs, :] = jnp.zeros(
-                (bw * bs, xbuf.shape[2]), xbuf.dtype)
-
-        @pl.when(t == ntiles - 1)
-        def _():
-            edge_bottom(slot).wait()
-            xbuf[slot, V * bs:, :] = jnp.zeros(
-                (W * bs - V * bs, xbuf.shape[2]), xbuf.dtype)
-
-        @pl.when((t > 0) & (t < ntiles - 1))
-        def _():
-            interior(slot, t).wait()
-
-    slot = tile % NB
-    if out is not None:
-        out_hbm, obuf, osem = out
-        oslot = tile % NBO
-
-        def out_copy(o, t):
-            return pltpu.make_async_copy(
-                obuf.at[o], out_hbm.at[pl.ds(t * R, R)], osem.at[o])
-
-    @pl.when(tile == 0)
-    def _():
-        # ntiles is static (the grid is static), so the prologue only
-        # starts windows for tiles that exist.
-        for d in range(min(D, ntiles)):
-            start_window(d % NB, d)
-        if on_first_tile is not None:
-            on_first_tile()
-
-    @pl.when(tile + D < ntiles)
-    def _():
-        start_window((tile + D) % NB, tile + D)
-
-    if out is not None:
-        # Reclaim the output buffer whose write started NBO tiles ago.
-        @pl.when(tile >= NBO)
-        def _():
-            out_copy(oslot, tile - NBO).wait()
-
-    wait_window(slot, tile)
-
-    for i in range(R):  # static unroll, static slices — every tile
-        y_i = compute_row(i, slot)
-        if out is not None:
-            obuf[oslot, i] = y_i.astype(obuf.dtype)
-
-    if out is not None:
-        out_copy(oslot, tile).start()
-
-        # Drain the outstanding writes on the final tile.
-        @pl.when(tile == ntiles - 1)
-        def _():
-            for d in range(min(NBO, ntiles)):
-                t_last = ntiles - 1 - d
-
-                @pl.when(t_last >= 0)
-                def _():
-                    out_copy(t_last % NBO, t_last).wait()
-
-
-def _banded_kernel(blocks_ref, x_hbm, out_hbm, xbuf, sem, obuf, osem, *,
-                   K: int, bw: int, W: int, nbr: int, R: int,
-                   NB: int = _N_WINDOW_BUFFERS):
-    """DIA-aligned banded-window kernel.
-
-    Storage rule: slot k of row r holds the block for column r - bw + k
-    (zero block when out of range), so row i of a tile always contracts
-    against buffer rows [i*bs, (i+K)*bs) of the tile's VIRTUAL window
-    [tile*R - bw, tile*R + R + bw) — a fully static inner loop with no
-    edge branches. Edge tiles fetch only the window's valid span into
-    the right buffer offset; the stale remainder multiplies zero blocks.
-    Windows are prefetched depth-3 into a ring of VMEM buffers (scratch
-    persists across the sequential TPU grid); measured on v5e the kernel
-    is HBM-bound beyond that depth.
-
-    The output leaves through a manual VMEM ring of async VMEM->HBM
-    copies rather than the automatic out pipeline: on the measured v5e
-    the HBM write path sustains only ~1/5 of the read bandwidth, so
-    writes must overlap as deeply as possible with subsequent tiles'
-    reads+compute (probe: kernel time equals the pure-DMA copy time of
-    the same byte mix — the op runs at the platform's streaming light
-    speed).
-    """
-    bs = blocks_ref.shape[1]
-
-    def compute_row(i, slot):
-        return jnp.dot(blocks_ref[i], xbuf[slot, i * bs:(i + K) * bs, :],
-                       preferred_element_type=_acc_dtype(blocks_ref.dtype))
-
-    _banded_sweep(x_hbm, xbuf, sem, bs=bs, bw=bw, W=W, nbr=nbr, R=R,
-                  NB=NB, compute_row=compute_row,
-                  out=(out_hbm, obuf, osem))
-
-
-def banded_pallas_supported(nbr: int, K: int, bandwidth: int) -> bool:
-    """Shape conditions for the DIA windowed-DMA kernel; other banded
-    operators take the general scattered-slice kernel (identical math via
-    the stored column table)."""
-    R = _TILE_R
-    return (K == 2 * bandwidth + 1 and bandwidth < R
-            and nbr % R == 0 and nbr >= 2 * R)
-
-
-_VMEM_BUDGET = 14 * 2**20  # leave headroom below the ~16 MB/core VMEM
-# The pure-read fused-gram sweep (no out ring, no v stream) carries less
-# hidden overhead; Mosaic maps its 14.7 MB R=32/NB=3 plan fine (probe:
-# experiments/r4_visx_probe2.py) and NB=3 beats NB=2 by ~1%.
-_VMEM_BUDGET_PURE_READ = 15 * 2**20
-
-
-def _banded_plan(nbr: int, bs: int, K: int, bw: int, mp: int,
-                 x_item: int, b_item: int, out_item: int,
-                 min_tiles: int = 2, gram_vmem: int = 0,
-                 fixed_vmem: int = 0, r_tiers: tuple = (16, 8),
-                 pure_read: bool = False):
-    """Pick (tile rows R, window-ring depth NB) under the VMEM budget.
-
-    Larger tiles amortize the 2*bw window-overlap traffic and give the
-    write ring bigger contiguous bursts (measured ~4% at R=16 vs R=8 on
-    v5e); deeper window rings hide DMA jitter. Preference order: big R,
-    deep NB.
-
-    ``gram_vmem``: extra per-R-row VMEM bytes the fused-gram variant
-    needs (the pipelined v tile, double-buffered). ``fixed_vmem``:
-    tile-independent resident bytes (the (mvp, mp) f32 gram accumulator
-    the fused kernels keep in VMEM across the whole grid).
-    ``r_tiers``: candidate tile heights, best first — the pure-read
-    fused sweep prefers R=32 (fewer, deeper window DMAs reduce the
-    measured DMA-issue contention between the block pipeline and the
-    window ring; see docs/ROADMAP.md), the write-ring kernels stay at
-    R=16 where the write engine is the binding constraint anyway.
-
-    ``pure_read``: the caller attests this plan carries NO out ring and
-    NO pipelined v stream (the ``v_is_x`` no-write sweep — the only
-    configuration the relaxed 15 MB budget was Mosaic-probed on,
-    ``experiments/r4_visx_probe2.py``). Explicit-v no-write plans still
-    double-buffer a v tile and must stay under the conservative budget,
-    or a 14-15 MB shape would pass the support probe and then fail
-    VMEM mapping at run time instead of taking the two-pass fallback.
-    """
-    budget = _VMEM_BUDGET_PURE_READ if pure_read else _VMEM_BUDGET
-    for R in r_tiers:
-        if nbr % R or nbr < min_tiles * R or bw >= R:
-            continue
-        for NB in (4, 3, 2):
-            W = R + 2 * bw
-            vmem = (NB * W * bs * mp * x_item          # window ring
-                    + 2 * R * bs * K * bs * b_item     # block pipeline
-                    + _N_OUT_BUFFERS * R * bs * mp * out_item  # out ring
-                    + gram_vmem * R                    # fused-gram v tile
-                    + fixed_vmem)                      # gram accumulator
-            if vmem <= budget:
-                return R, NB, W
-    return None
-
-
-def _gram_plan(nbr, bs, K, bw, m, mv, x_item, b_item, out_item, v_item,
-               v_is_x: bool = False):
-    """The fused SpMM+Gram kernels' VMEM plan (None if nothing fits).
-
-    Shared by the kernel launchers and the operators' fallback check —
-    ``matmat_with_gram`` composes ``matmat`` + einsum instead of raising
-    when the fused variant's extra VMEM (v tile + accumulator) does not
-    fit shapes the plain SpMM handles fine.
-
-    ``v_is_x``: the Rayleigh-Ritz case ``G = Xᵀ A X`` — the gram
-    operand's rows are exactly the window's center rows, so no v stream
-    (and no v tile VMEM) exists at all; only the staged-row ybuf
-    remains. The freed VMEM admits taller tiles (R=32), which halve the
-    window-DMA issue rate — the measured contention bottleneck of the
-    pure-read sweep.
-    """
-    mp = _lane_pad(m)
-    mvp = _lane_pad(mv)
-    # gram_vmem per R-row: the double-buffered pipelined v tile (absent
-    # when v IS x) plus the tile's staged row results (ybuf) for the
-    # single per-tile gram dot.
-    v_tile = 0 if v_is_x else 2 * mvp * v_item
-    ybuf_item = x_item if v_is_x else v_item
-    pure_read = v_is_x and out_item == 0
-    r_tiers = (32, 16, 8) if pure_read else (16, 8)
-    return _banded_plan(nbr, bs, K, bw, mp, x_item, b_item, out_item,
-                        gram_vmem=(v_tile + mp * ybuf_item) * bs,
-                        fixed_vmem=mvp * mp * 4, r_tiers=r_tiers,
-                        pure_read=pure_read)
-
-
-def banded_gram_supported(nbr: int, K: int, bw: int, bs: int, m: int,
-                          mv: int, x_item: int, b_item, out_item: int,
-                          v_item: int, v_is_x: bool = False) -> bool:
-    """True when the fused banded SpMM+Gram kernel can run: band shape
-    supported AND a VMEM plan exists for these operand widths/dtypes."""
-    return (banded_pallas_supported(nbr, K, bw)
-            and _gram_plan(nbr, bs, K, bw, m, mv, x_item, b_item,
-                           out_item, v_item, v_is_x) is not None)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("bandwidth", "interpret", "out_dtype"))
-def banded_bsr_spmm(blocks, x, *, bandwidth: int,
-                    interpret: bool | None = None, out_dtype=None):
-    """Banded block-sparse SpMM with implicit (DIA-aligned) columns.
-
-    For a banded BSR matrix stored DIA-aligned (slot k of row r holds
-    column ``r - bw + k``; out-of-range slots hold zero blocks — the
-    layout :func:`~fortran_davidson_tpu.ops.sparse.generate_banded_bsr`
-    emits), the K gathered slices per row are CONTIGUOUS rows of ``x`` at
-    a row-invariant offset — each R-row tile needs ONE windowed DMA of
-    ``(R + 2*bw) * bs`` rows instead of ``R * K`` scattered slice
-    fetches, and the MXU loop is branch-free for every tile. Output
-    leaves through a manual write ring (see :func:`_banded_kernel`).
-
-    Args:
-      blocks: (nbr, bs, K*bs) row-major block layout, K = 2*bandwidth+1.
-      x: (nbr * bs, m).
-      bandwidth: block bandwidth bw (static). Requires
-        :func:`banded_pallas_supported` shape conditions.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x.dtype if out_dtype is None else out_dtype)
     nbr, bs, kbs = blocks.shape
     K = kbs // bs
     bw = int(bandwidth)
-    if not banded_pallas_supported(nbr, K, bw):
-        raise ValueError(
-            f"banded_bsr_spmm needs K == 2*bw+1, bw < {_TILE_R}, "
-            f"nbr % {_TILE_R} == 0 and nbr >= {2 * _TILE_R}; "
-            f"got nbr={nbr}, K={K}, bw={bw}")
-    n_in, m = x.shape
-    mp = _lane_pad(m)
-    if mp != m:
-        x = jnp.pad(x, ((0, 0), (0, mp - m)))
-
-    plan = _banded_plan(nbr, bs, K, bw, mp, x.dtype.itemsize,
-                        blocks.dtype.itemsize, out_dtype.itemsize)
-    if plan is None:
-        raise ValueError(
-            f"banded_bsr_spmm: no (tile, ring) plan fits VMEM for "
-            f"bs={bs}, K={K}, m={mp} — reduce the block width m")
-    R, NB, W = plan
-
-    kernel = functools.partial(_banded_kernel, K=K, bw=bw, W=W, nbr=nbr,
-                               R=R, NB=NB)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((NB, W * bs, mp), x.dtype),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-            pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-        ],
-        out_shape=jax.ShapeDtypeStruct((nbr, bs, mp), out_dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp,
-            bytes_accessed=(blocks.size * blocks.dtype.itemsize
-                            + (nbr // R) * W * bs * mp * x.dtype.itemsize
-                            + nbr * bs * mp * out_dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(blocks, x)
-    out = out.reshape(nbr * bs, mp)
-    return out[:, :m] if mp != m else out
-
-
-def _banded_gram_kernel(blocks_ref, *args, K: int, bw: int,
-                        W: int, nbr: int, R: int, write_out: bool,
-                        v_is_x: bool = False,
-                        NB: int = _N_WINDOW_BUFFERS):
-    """Fused producer→consumer sweep: ``Y = A @ X`` and ``G = Vᵀ Y``.
-
-    The measured v5e bottleneck of the plain SpMM is the Mosaic VMEM→HBM
-    DMA *write* engine (~250-260 GB/s vs 786 GB/s reads — see
-    ``experiments/spmm_probe5.py`` / docs/ROADMAP.md "Write path"). The
-    escape is to consume the SpMM output while it is still in VMEM: each
-    output tile is contracted against the matching rows of a second tall
-    operand ``v`` on the MXU before (or instead of) leaving through the
-    write ring, so the iteration-level consumer (the Rayleigh-Ritz
-    projection block ``Vᵀ A V``, reference hot gemm
-    ``src/davidson.f90:131,159``) costs ZERO extra HBM traffic for Y and
-    one extra streaming read of ``v`` — reads are the cheap direction.
-    With ``write_out=False`` Y is never written at all: the sweep's
-    traffic is pure reads (blocks + window + v), the direction the
-    hardware sustains at ~96% of nominal.
-
-    ``v`` arrives as a normally pipelined VMEM input aligned with the
-    OUTPUT tile rows (no window overlap — the gram pairs v rows with Y
-    rows 1:1). The (mv, mp) gram block accumulates in a
-    constant-index-mapped VMEM output across the sequential TPU grid and
-    is written back once, on the last tile.
-
-    The tile's row results are STAGED in a VMEM scratch and contracted
-    in ONE (R*bs)-deep gram dot per tile rather than R per-row dots:
-    the per-row accumulator read-modify-write serialized against the
-    MXU (measured 2.28 -> 1.61 ms on the v5e m=256 no-write sweep —
-    within 3% of the gram-free sweep; `experiments/fused_probe.py`).
-
-    ``v_is_x`` (the Rayleigh-Ritz projection ``G = Xᵀ A X``): v's rows
-    for this tile ARE the window buffer's center rows — contract against
-    them directly instead of streaming x from HBM a second time as a
-    separate pipelined operand. One full read of x disappears from the
-    sweep's traffic, and the freed VMEM admits R=32 tiles (fewer, deeper
-    window DMAs — the pure-read sweep's measured bottleneck is DMA-issue
-    contention, not bandwidth).
-    """
-    if v_is_x:
-        v_ref, rest = None, args
-    else:
-        v_ref, *rest = args
-    x_hbm, *rest = rest
-    if write_out:
-        out_hbm, g_ref, xbuf, sem, obuf, osem, ybuf = rest
-    else:
-        (g_ref, xbuf, sem, ybuf) = rest
-        out_hbm = obuf = osem = None
-    bs = blocks_ref.shape[1]
-
-    def compute_row(i, slot):
-        y_i = jnp.dot(
-            blocks_ref[i], xbuf[slot, i * bs:(i + K) * bs, :],
-            preferred_element_type=_acc_dtype(blocks_ref.dtype))
-        ybuf[pl.ds(i * bs, bs), :] = y_i.astype(ybuf.dtype)
-        return y_i
-
-    def init_gram():
-        g_ref[:] = jnp.zeros(g_ref.shape, g_ref.dtype)
-
-    _banded_sweep(x_hbm, xbuf, sem, bs=bs, bw=bw, W=W, nbr=nbr, R=R,
-                  NB=NB, compute_row=compute_row,
-                  out=(out_hbm, obuf, osem) if write_out else None,
-                  on_first_tile=init_gram)
-    if v_is_x:
-        slot = pl.program_id(0) % NB
-        vblk = xbuf[slot, bw * bs:(bw + R) * bs, :]
-    else:
-        vblk = v_ref[:]
-    g_ref[:] += jax.lax.dot_general(
-        vblk, ybuf[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(g_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("bandwidth", "write_out",
-                                             "interpret", "out_dtype"))
-def banded_bsr_spmm_gram(blocks, x, v=None, *, bandwidth: int,
-                         write_out: bool = True,
-                         interpret: bool | None = None, out_dtype=None):
-    """Fused banded SpMM + Gram: ``Y = A @ X``, ``G = Vᵀ Y`` in one sweep.
-
-    The Davidson hot pair — apply the operator, then project
-    (``Vᵀ (A V)``, reference ``src/davidson.f90:131,159``) — fused so the
-    SpMM output is consumed on the MXU while still in VMEM. Versus the
-    two-pass composition this removes one full HBM read of Y (and, with
-    ``write_out=False``, the Y *write* as well — the bandwidth-limited
-    direction on the measured v5e; see :func:`_banded_gram_kernel`).
-
-    Args:
-      blocks: (nbr, bs, K*bs) DIA-aligned row-major block layout.
-      x: (nbr * bs, m) — SpMM input block.
-      v: (nbr * bs, mv) — gram operand; ``None`` uses ``x`` itself
-        (G = Xᵀ A X, the Rayleigh-Ritz projection of the block) WITHOUT
-        streaming x twice: the gram contracts the window buffer's
-        center rows, so x is read from HBM exactly once.
-      write_out: also materialize Y to HBM (the cached-AV engines need
-        it); ``False`` returns only G — the pure-read sweep for
-        recompute-style consumers.
-
-    Returns:
-      ``(Y, G)`` with ``write_out=True``; ``G`` alone otherwise. G is
-      float32, shape (mv, m).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    if not kernel_supported(bs, K, bw, blocks.dtype):
+        raise OperatorError(
+            f"banded_spmm needs K == 2*bw+1, a power-of-two block size "
+            f">= 32 and bf16/int8 blocks; got blocks {blocks.shape} "
+            f"{blocks.dtype}, bw={bw}")
+    kind = "int8" if blocks.dtype == jnp.int8 else "bf16"
+    if (kind == "int8") != (scale_rows is not None and diag is not None):
+        raise OperatorError("int8 blocks need scale_rows and diag (and "
+                            "only int8 blocks take them)")
+    nbx = nbr + 2 * bw if halo else nbr
+    if x.shape[0] != nbx * bs:
+        raise OperatorError(f"x has {x.shape[0]} rows, expected {nbx * bs}")
+    m = x.shape[1]
     out_dtype = jnp.dtype(x.dtype if out_dtype is None else out_dtype)
-    nbr, bs, kbs = blocks.shape
-    K = kbs // bs
-    bw = int(bandwidth)
-    if not banded_pallas_supported(nbr, K, bw):
-        raise ValueError(
-            f"banded_bsr_spmm_gram needs K == 2*bw+1, bw < {_TILE_R}, "
-            f"nbr % {_TILE_R} == 0 and nbr >= {2 * _TILE_R}; "
-            f"got nbr={nbr}, K={K}, bw={bw}")
-    n_in, m = x.shape
-    v_is_x = v is None
-    mv = m if v_is_x else v.shape[1]
-    mp = _lane_pad(m)
-    if mp != m:
-        x = jnp.pad(x, ((0, 0), (0, mp - m)))
-    mvp = _lane_pad(mv)
-    if not v_is_x and mvp != mv:
-        v = jnp.pad(v, ((0, 0), (0, mvp - mv)))
-
-    out_item = out_dtype.itemsize if write_out else 0
-    plan = _gram_plan(nbr, bs, K, bw, m, mv, x.dtype.itemsize,
-                      blocks.dtype.itemsize, out_item,
-                      x.dtype.itemsize if v_is_x else v.dtype.itemsize,
-                      v_is_x)
-    if plan is None:
-        raise ValueError(
-            f"banded_bsr_spmm_gram: no (tile, ring) plan fits VMEM for "
-            f"bs={bs}, K={K}, m={mp}, mv={mvp} — reduce the block width")
-    R, NB, W = plan
-
-    kernel = functools.partial(_banded_gram_kernel, K=K, bw=bw, W=W,
-                               nbr=nbr, R=R, NB=NB, write_out=write_out,
-                               v_is_x=v_is_x)
-    g_shape = jax.ShapeDtypeStruct((mvp, mp), jnp.float32)
-    in_specs = [
-        pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    if not v_is_x:
-        in_specs.append(pl.BlockSpec((R * bs, mvp), lambda r: (r, 0),
-                                     memory_space=pltpu.VMEM))
-    in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-    operands = (blocks, x) if v_is_x else (blocks, v, x)
-    g_spec = pl.BlockSpec((mvp, mp), lambda r: (0, 0),
-                          memory_space=pltpu.VMEM)
-    scratch = [
-        pltpu.VMEM((NB, W * bs, mp), x.dtype),
-        pltpu.SemaphoreType.DMA((NB,)),
-    ]
-    read_bytes = (blocks.size * blocks.dtype.itemsize
-                  + (nbr // R) * W * bs * mp * x.dtype.itemsize
-                  + (0 if v_is_x
-                     else nbr * bs * mvp * v.dtype.itemsize))
-    gram_flops = 2 * nbr * bs * mvp * mp
-    ybuf = pltpu.VMEM((R * bs, mp),
-                      x.dtype if v_is_x else v.dtype)  # staged tile rows
-    if write_out:
-        out = pl.pallas_call(
-            kernel,
-            grid=(nbr // R,),
-            in_specs=in_specs,
-            out_specs=[pl.BlockSpec(memory_space=pl.ANY), g_spec],
-            scratch_shapes=scratch + [
-                pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-                pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-                ybuf,
-            ],
-            out_shape=[jax.ShapeDtypeStruct((nbr, bs, mp), out_dtype),
-                       g_shape],
-            interpret=interpret,
-            compiler_params=pltpu.CompilerParams(has_side_effects=True),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nbr * K * bs * bs * mp + gram_flops,
-                bytes_accessed=(read_bytes
-                                + nbr * bs * mp * out_dtype.itemsize
-                                + mvp * mp * 4),
-                transcendentals=0,
-            ),
-        )(*operands)
-        y, g = out
-        y = y.reshape(nbr * bs, mp)
-        return (y[:, :m] if mp != m else y), g[:mv, :m]
-    g = pl.pallas_call(
+    TR, TM = _tiles(bs, m, kind)
+    if pairs is None:
+        pairs = kind == "int8" and blocks.size >= _MAX_I32_ELEMENTS
+    item = jnp.dtype(blocks.dtype).itemsize
+    if pairs:
+        blocks = jax.lax.bitcast_convert_type(
+            blocks.reshape(nbr, bs, kbs // 2, 2), jnp.int16)
+    kernel = functools.partial(_banded_kernel, K=K, bw=bw, bs=bs, TR=TR,
+                               TM=TM, m=m, nbx=nbx, shift=bw if halo else 0,
+                               kind=kind, pairs=pairs)
+    operands = ((blocks, scale_rows, diag, x) if kind == "int8"
+                else (blocks, x))
+    return pl.pallas_call(
         kernel,
-        grid=(nbr // R,),
-        in_specs=in_specs,
-        out_specs=g_spec,
-        scratch_shapes=scratch + [ybuf],
-        out_shape=g_shape,
+        grid=(nbr, bs // TR, pl.cdiv(m, TM)),
+        out_shape=jax.ShapeDtypeStruct((nbr * bs, m), out_dtype),
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
+        compiler_params=plgpu.CompilerParams(num_warps=4,
+                                             num_stages=1),
         cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp + gram_flops,
-            bytes_accessed=read_bytes + mvp * mp * 4,
-            transcendentals=0,
-        ),
+            flops=2 * nbr * K * bs * bs * m * (3 if kind == "int8" else 1),
+            bytes_accessed=(nbr * bs * kbs * item + nbx * bs * m * x.itemsize
+                            + nbr * bs * m * out_dtype.itemsize),
+            transcendentals=0),
+        name="banded_spmm",
     )(*operands)
-    return g[:mv, :m]
-
-
-def _banded_q_kernel(blocks_ref, srow_ref, diag_ref, x_hbm, out_hbm, xbuf,
-                     sem, obuf, osem, *, K: int, bw: int, W: int, nbr: int,
-                     R: int, NB: int = _N_WINDOW_BUFFERS):
-    """int8-quantized variant of :func:`_banded_kernel`.
-
-    Stored blocks are the OFF-diagonal part of the operator quantized to
-    int8 with one f32 scale per (block row, band slot); the exact f32
-    matrix diagonal rides along separately. Per row the kernel
-    dequantizes in VMEM (int8 -> f32 cast * lane-broadcast scale row —
-    VPU work dwarfed by the MXU dot), contracts the full (bs, K*bs)
-    slab in ONE dot, and adds ``d_i * x_i`` from the window's center
-    slice. Splitting the diagonal out is what makes int8 usable for
-    diagonal-dominant operators at all: with diag ~ 1..n in-band, a
-    shared scale would quantize every off-diagonal coupling to zero.
-
-    HBM traffic for the blocks drops 2x vs bf16 / 4x vs f32; scale rows
-    and diagonal add ~3%.
-    """
-    bs = blocks_ref.shape[1]
-
-    def compute_row(i, slot):
-        w = blocks_ref[i].astype(jnp.float32) * srow_ref[i][None, :]
-        acc = jnp.dot(w, xbuf[slot, i * bs:(i + K) * bs, :],
-                      preferred_element_type=jnp.float32)
-        ctr = xbuf[slot, (i + bw) * bs:(i + bw + 1) * bs, :]
-        return acc + diag_ref[i][:, None] * ctr.astype(jnp.float32)
-
-    _banded_sweep(x_hbm, xbuf, sem, bs=bs, bw=bw, W=W, nbr=nbr, R=R,
-                  NB=NB, compute_row=compute_row,
-                  out=(out_hbm, obuf, osem))
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("bandwidth", "interpret", "out_dtype"))
-def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, *, bandwidth: int,
-                      interpret: bool | None = None, out_dtype=None):
-    """int8-quantized DIA banded SpMM (see :func:`_banded_q_kernel`).
-
-    Args:
-      qblocks: (nbr, bs, K*bs) int8 — quantized OFF-diagonal blocks in
-        the DIA-aligned row-major block layout.
-      scale_rows: (nbr, K*bs) f32 — dequantization scale for each lane
-        of a block row (per-slot scale broadcast over the slot's bs
-        lanes).
-      diag: (nbr, bs) f32 — exact matrix diagonal.
-      x: (nbr * bs, m).
-      bandwidth: block bandwidth (static); same shape conditions as
-        :func:`banded_bsr_spmm`.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x.dtype if out_dtype is None else out_dtype)
-    nbr, bs, kbs = qblocks.shape
-    K = kbs // bs
-    bw = int(bandwidth)
-    if not banded_pallas_supported(nbr, K, bw):
-        raise ValueError(
-            f"banded_q_bsr_spmm needs K == 2*bw+1, bw < {_TILE_R}, "
-            f"nbr % {_TILE_R} == 0 and nbr >= {2 * _TILE_R}; "
-            f"got nbr={nbr}, K={K}, bw={bw}")
-    n_in, m = x.shape
-    mp = _lane_pad(m)
-    if mp != m:
-        x = jnp.pad(x, ((0, 0), (0, mp - m)))
-
-    # Effective per-block-row bytes: int8 blocks + f32 scale row + f32
-    # diagonal slice (the plan formula charges 2*R*bs*K*bs*b_item).
-    b_item = 1 + 4 / bs + 4 / (K * bs)
-    plan = _banded_plan(nbr, bs, K, bw, mp, x.dtype.itemsize, b_item,
-                        out_dtype.itemsize)
-    if plan is None:
-        raise ValueError(
-            f"banded_q_bsr_spmm: no (tile, ring) plan fits VMEM for "
-            f"bs={bs}, K={K}, m={mp} — reduce the block width m")
-    R, NB, W = plan
-
-    kernel = functools.partial(_banded_q_kernel, K=K, bw=bw, W=W, nbr=nbr,
-                               R=R, NB=NB)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, K * bs), lambda r: (r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, bs), lambda r: (r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((NB, W * bs, mp), x.dtype),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-            pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-        ],
-        out_shape=jax.ShapeDtypeStruct((nbr, bs, mp), out_dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp,
-            bytes_accessed=(qblocks.size + scale_rows.size * 4
-                            + diag.size * 4
-                            + (nbr // R) * W * bs * mp * x.dtype.itemsize
-                            + nbr * bs * mp * out_dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(qblocks, scale_rows, diag, x)
-    out = out.reshape(nbr * bs, mp)
-    return out[:, :m] if mp != m else out
-
-
-def _banded_q_gram_kernel(blocks_ref, srow_ref, diag_ref, *args,
-                          K: int, bw: int, W: int, nbr: int, R: int,
-                          write_out: bool, v_is_x: bool = False,
-                          NB: int = _N_WINDOW_BUFFERS):
-    """int8-quantized fused SpMM + Gram (see :func:`_banded_gram_kernel`
-    for the fusion rationale — including the ``v_is_x`` window-center
-    gram — and :func:`_banded_q_kernel` for the quantization scheme, and
-    the former's tile-staged single gram dot, which replaced the per-row
-    accumulator read-modify-writes). With int8 blocks the plain kernel's
-    HBM write of Y is an even larger FRACTION of total traffic, so
-    consuming Y in VMEM matters more."""
-    if v_is_x:
-        v_ref, rest = None, args
-    else:
-        v_ref, *rest = args
-    x_hbm, *rest = rest
-    if write_out:
-        out_hbm, g_ref, xbuf, sem, obuf, osem, ybuf = rest
-    else:
-        (g_ref, xbuf, sem, ybuf) = rest
-        out_hbm = obuf = osem = None
-    bs = blocks_ref.shape[1]
-
-    def compute_row(i, slot):
-        w = blocks_ref[i].astype(jnp.float32) * srow_ref[i][None, :]
-        acc = jnp.dot(w, xbuf[slot, i * bs:(i + K) * bs, :],
-                      preferred_element_type=jnp.float32)
-        ctr = xbuf[slot, (i + bw) * bs:(i + bw + 1) * bs, :]
-        y_i = acc + diag_ref[i][:, None] * ctr.astype(jnp.float32)
-        ybuf[pl.ds(i * bs, bs), :] = y_i.astype(ybuf.dtype)
-        return y_i
-
-    def init_gram():
-        g_ref[:] = jnp.zeros(g_ref.shape, g_ref.dtype)
-
-    _banded_sweep(x_hbm, xbuf, sem, bs=bs, bw=bw, W=W, nbr=nbr, R=R,
-                  NB=NB, compute_row=compute_row,
-                  out=(out_hbm, obuf, osem) if write_out else None,
-                  on_first_tile=init_gram)
-    if v_is_x:
-        slot = pl.program_id(0) % NB
-        vblk = xbuf[slot, bw * bs:(bw + R) * bs, :]
-    else:
-        vblk = v_ref[:]
-    g_ref[:] += jax.lax.dot_general(
-        vblk, ybuf[:],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32).astype(g_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("bandwidth", "write_out",
-                                             "interpret", "out_dtype"))
-def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
-                           bandwidth: int, write_out: bool = True,
-                           interpret: bool | None = None, out_dtype=None):
-    """int8-quantized fused banded SpMM + Gram (``Y = A @ X``,
-    ``G = Vᵀ Y``). See :func:`banded_bsr_spmm_gram` for semantics and
-    :func:`banded_q_bsr_spmm` for the quantized storage format."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x.dtype if out_dtype is None else out_dtype)
-    nbr, bs, kbs = qblocks.shape
-    K = kbs // bs
-    bw = int(bandwidth)
-    if not banded_pallas_supported(nbr, K, bw):
-        raise ValueError(
-            f"banded_q_bsr_spmm_gram needs K == 2*bw+1, bw < {_TILE_R}, "
-            f"nbr % {_TILE_R} == 0 and nbr >= {2 * _TILE_R}; "
-            f"got nbr={nbr}, K={K}, bw={bw}")
-    n_in, m = x.shape
-    v_is_x = v is None
-    mv = m if v_is_x else v.shape[1]
-    mp = _lane_pad(m)
-    if mp != m:
-        x = jnp.pad(x, ((0, 0), (0, mp - m)))
-    mvp = _lane_pad(mv)
-    if not v_is_x and mvp != mv:
-        v = jnp.pad(v, ((0, 0), (0, mvp - mv)))
-
-    b_item = 1 + 4 / bs + 4 / (K * bs)
-    out_item = out_dtype.itemsize if write_out else 0
-    plan = _gram_plan(nbr, bs, K, bw, m, mv, x.dtype.itemsize, b_item,
-                      out_item,
-                      x.dtype.itemsize if v_is_x else v.dtype.itemsize,
-                      v_is_x)
-    if plan is None:
-        raise ValueError(
-            f"banded_q_bsr_spmm_gram: no (tile, ring) plan fits VMEM for "
-            f"bs={bs}, K={K}, m={mp}, mv={mvp} — reduce the block width")
-    R, NB, W = plan
-
-    kernel = functools.partial(_banded_q_gram_kernel, K=K, bw=bw, W=W,
-                               nbr=nbr, R=R, NB=NB, write_out=write_out,
-                               v_is_x=v_is_x)
-    g_shape = jax.ShapeDtypeStruct((mvp, mp), jnp.float32)
-    in_specs = [
-        pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((R, K * bs), lambda r: (r, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((R, bs), lambda r: (r, 0), memory_space=pltpu.VMEM),
-    ]
-    if not v_is_x:
-        in_specs.append(pl.BlockSpec((R * bs, mvp), lambda r: (r, 0),
-                                     memory_space=pltpu.VMEM))
-    in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-    operands = ((qblocks, scale_rows, diag, x) if v_is_x
-                else (qblocks, scale_rows, diag, v, x))
-    g_spec = pl.BlockSpec((mvp, mp), lambda r: (0, 0),
-                          memory_space=pltpu.VMEM)
-    scratch = [
-        pltpu.VMEM((NB, W * bs, mp), x.dtype),
-        pltpu.SemaphoreType.DMA((NB,)),
-    ]
-    ybuf = pltpu.VMEM((R * bs, mp), x.dtype if v_is_x else v.dtype)
-    read_bytes = (qblocks.size + scale_rows.size * 4 + diag.size * 4
-                  + (nbr // R) * W * bs * mp * x.dtype.itemsize
-                  + (0 if v_is_x
-                     else nbr * bs * mvp * v.dtype.itemsize))
-    gram_flops = 2 * nbr * bs * mvp * mp
-    if write_out:
-        y, g = pl.pallas_call(
-            kernel,
-            grid=(nbr // R,),
-            in_specs=in_specs,
-            out_specs=[pl.BlockSpec(memory_space=pl.ANY), g_spec],
-            scratch_shapes=scratch + [
-                pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-                pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-                ybuf,
-            ],
-            out_shape=[jax.ShapeDtypeStruct((nbr, bs, mp), out_dtype),
-                       g_shape],
-            interpret=interpret,
-            compiler_params=pltpu.CompilerParams(has_side_effects=True),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * nbr * K * bs * bs * mp + gram_flops,
-                bytes_accessed=(read_bytes
-                                + nbr * bs * mp * out_dtype.itemsize
-                                + mvp * mp * 4),
-                transcendentals=0,
-            ),
-        )(*operands)
-        y = y.reshape(nbr * bs, mp)
-        return (y[:, :m] if mp != m else y), g[:mv, :m]
-    g = pl.pallas_call(
-        kernel,
-        grid=(nbr // R,),
-        in_specs=in_specs,
-        out_specs=g_spec,
-        scratch_shapes=scratch + [ybuf],
-        out_shape=g_shape,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp + gram_flops,
-            bytes_accessed=read_bytes + mvp * mp * 4,
-            transcendentals=0,
-        ),
-    )(*operands)
-    return g[:mv, :m]
-
-
-def _banded_q_ext_kernel(blocks_ref, srow_ref, diag_ref, x_hbm, out_hbm,
-                         xbuf, sem, obuf, osem, *, K: int, bw: int, W: int,
-                         R: int, NB: int = _N_WINDOW_BUFFERS):
-    """Halo-extended variant of :func:`_banded_q_kernel` (int8 blocks +
-    f32 scales/diagonal over a pre-extended input — the shard-local
-    contraction of the distributed quantized solve). No edge forms: every
-    tile's window is valid, like :func:`_banded_ext_kernel`."""
-    bs = blocks_ref.shape[1]
-    tile = pl.program_id(0)
-    ntiles = pl.num_programs(0)
-    NBO = _N_OUT_BUFFERS
-    D = NB - 1
-
-    def window(slot, t):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds(t * R * bs, W * bs), :],
-            xbuf.at[slot], sem.at[slot])
-
-    def out_copy(oslot, t):
-        return pltpu.make_async_copy(
-            obuf.at[oslot], out_hbm.at[pl.ds(t * R, R)], osem.at[oslot])
-
-    slot = tile % NB
-    oslot = tile % NBO
-
-    @pl.when(tile == 0)
-    def _():
-        for d in range(min(D, ntiles)):
-            window(d % NB, d).start()
-
-    @pl.when(tile + D < ntiles)
-    def _():
-        window((tile + D) % NB, tile + D).start()
-
-    @pl.when(tile >= NBO)
-    def _():
-        out_copy(oslot, tile - NBO).wait()
-
-    window(slot, tile).wait()
-
-    for i in range(R):
-        w = blocks_ref[i].astype(jnp.float32) * srow_ref[i][None, :]
-        acc = jnp.dot(w, xbuf[slot, i * bs:(i + K) * bs, :],
-                      preferred_element_type=jnp.float32)
-        ctr = xbuf[slot, (i + bw) * bs:(i + bw + 1) * bs, :]
-        obuf[oslot, i] = (acc + diag_ref[i][:, None]
-                          * ctr.astype(jnp.float32)).astype(obuf.dtype)
-
-    out_copy(oslot, tile).start()
-
-    @pl.when(tile == ntiles - 1)
-    def _():
-        for d in range(min(NBO, ntiles)):
-            t_last = ntiles - 1 - d
-
-            @pl.when(t_last >= 0)
-            def _():
-                out_copy(t_last % NBO, t_last).wait()
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("bandwidth", "interpret", "out_dtype"))
-def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
-                          bandwidth: int, interpret: bool | None = None,
-                          out_dtype=None):
-    """int8-quantized DIA banded SpMM over a halo-extended input
-    (``x_ext`` carries ``bandwidth`` block rows of halo on each side;
-    see :func:`banded_ext_bsr_spmm` for the extension contract)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x_ext.dtype if out_dtype is None else out_dtype)
-    nbr, bs, kbs = qblocks.shape
-    K = kbs // bs
-    bw = int(bandwidth)
-    if K != 2 * bw + 1 or nbr % _TILE_R:
-        raise ValueError(
-            f"banded_q_ext_bsr_spmm needs K == 2*bw+1 and nbr % {_TILE_R} "
-            f"== 0; got nbr={nbr}, K={K}, bw={bw}")
-    n_ext, m = x_ext.shape
-    if n_ext != (nbr + 2 * bw) * bs:
-        raise ValueError(
-            f"x_ext has {n_ext} rows, expected {(nbr + 2 * bw) * bs}")
-    mp = _lane_pad(m)
-    if mp != m:
-        x_ext = jnp.pad(x_ext, ((0, 0), (0, mp - m)))
-
-    b_item = 1 + 4 / bs + 4 / (K * bs)
-    plan = _banded_plan(nbr, bs, K, bw, mp, x_ext.dtype.itemsize, b_item,
-                        out_dtype.itemsize, min_tiles=1)
-    if plan is None:
-        raise ValueError(
-            f"banded_q_ext_bsr_spmm: no (tile, ring) plan fits VMEM for "
-            f"bs={bs}, K={K}, m={mp} — reduce the block width m")
-    R, NB, W = plan
-
-    kernel = functools.partial(_banded_q_ext_kernel, K=K, bw=bw, W=W, R=R,
-                               NB=NB)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, K * bs), lambda r: (r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, bs), lambda r: (r, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((NB, W * bs, mp), x_ext.dtype),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-            pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-        ],
-        out_shape=jax.ShapeDtypeStruct((nbr, bs, mp), out_dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp,
-            bytes_accessed=(qblocks.size + scale_rows.size * 4
-                            + diag.size * 4
-                            + (nbr // R) * W * bs * mp
-                            * x_ext.dtype.itemsize
-                            + nbr * bs * mp * out_dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(qblocks, scale_rows, diag, x_ext)
-    out = out.reshape(nbr * bs, mp)
-    return out[:, :m] if mp != m else out
-
-
-def _banded_ext_kernel(blocks_ref, x_hbm, out_hbm, xbuf, sem, obuf, osem,
-                       *, K: int, W: int, R: int,
-                       NB: int = _N_WINDOW_BUFFERS):
-    """Pre-extended variant of :func:`_banded_kernel`: the input already
-    carries ``bw*bs`` halo rows on each side (a shard's local slab after
-    ring ppermute exchange), so EVERY tile's window [t*R*bs, (t*R+W)*bs)
-    is valid — no edge forms at all. Same manual output write ring."""
-    bs = blocks_ref.shape[1]
-    tile = pl.program_id(0)
-    ntiles = pl.num_programs(0)
-    NBO = _N_OUT_BUFFERS
-    D = NB - 1
-
-    def window(slot, t):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds(t * R * bs, W * bs), :],
-            xbuf.at[slot], sem.at[slot])
-
-    def out_copy(oslot, t):
-        return pltpu.make_async_copy(
-            obuf.at[oslot], out_hbm.at[pl.ds(t * R, R)], osem.at[oslot])
-
-    slot = tile % NB
-    oslot = tile % NBO
-
-    @pl.when(tile == 0)
-    def _():
-        for d in range(min(D, ntiles)):
-            window(d % NB, d).start()
-
-    @pl.when(tile + D < ntiles)
-    def _():
-        window((tile + D) % NB, tile + D).start()
-
-    @pl.when(tile >= NBO)
-    def _():
-        out_copy(oslot, tile - NBO).wait()
-
-    window(slot, tile).wait()
-
-    for i in range(R):
-        obuf[oslot, i] = jnp.dot(
-            blocks_ref[i], xbuf[slot, i * bs:(i + K) * bs, :],
-            preferred_element_type=_acc_dtype(blocks_ref.dtype),
-        ).astype(obuf.dtype)
-
-    out_copy(oslot, tile).start()
-
-    @pl.when(tile == ntiles - 1)
-    def _():
-        for d in range(min(NBO, ntiles)):
-            t_last = ntiles - 1 - d
-
-            @pl.when(t_last >= 0)
-            def _():
-                out_copy(t_last % NBO, t_last).wait()
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("bandwidth", "interpret", "out_dtype"))
-def banded_ext_bsr_spmm(blocks, x_ext, *, bandwidth: int,
-                        interpret: bool | None = None, out_dtype=None):
-    """DIA banded SpMM over a halo-extended input.
-
-    ``x_ext`` has shape ``((nbr + 2*bandwidth) * bs, m)``: the local rows
-    framed by ``bandwidth`` block rows of halo on each side (garbage at
-    the global ring ends is cancelled by the zero out-of-range blocks).
-    This is the shard-local contraction of the distributed banded solve:
-    ppermute fills the halos, this kernel does the MXU work.
-
-    Requires ``nbr % 8 == 0``.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x_ext.dtype if out_dtype is None else out_dtype)
-    nbr, bs, kbs = blocks.shape
-    K = kbs // bs
-    bw = int(bandwidth)
-    if K != 2 * bw + 1 or nbr % _TILE_R:
-        raise ValueError(
-            f"banded_ext_bsr_spmm needs K == 2*bw+1 and nbr % {_TILE_R} "
-            f"== 0; got nbr={nbr}, K={K}, bw={bw}")
-    n_ext, m = x_ext.shape
-    if n_ext != (nbr + 2 * bw) * bs:
-        raise ValueError(
-            f"x_ext has {n_ext} rows, expected {(nbr + 2 * bw) * bs}")
-    mp = _lane_pad(m)
-    if mp != m:
-        x_ext = jnp.pad(x_ext, ((0, 0), (0, mp - m)))
-
-    plan = _banded_plan(nbr, bs, K, bw, mp, x_ext.dtype.itemsize,
-                        blocks.dtype.itemsize, out_dtype.itemsize,
-                        min_tiles=1)
-    if plan is None:
-        raise ValueError(
-            f"banded_ext_bsr_spmm: no (tile, ring) plan fits VMEM for "
-            f"bs={bs}, K={K}, m={mp} — reduce the block width m")
-    R, NB, W = plan
-
-    kernel = functools.partial(_banded_ext_kernel, K=K, W=W, R=R, NB=NB)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nbr // R,),
-        in_specs=[
-            pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((NB, W * bs, mp), x_ext.dtype),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-            pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-        ],
-        out_shape=jax.ShapeDtypeStruct((nbr, bs, mp), out_dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * K * bs * bs * mp,
-            bytes_accessed=(blocks.size * blocks.dtype.itemsize
-                            + (nbr // R) * W * bs * mp * x_ext.dtype.itemsize
-                            + nbr * bs * mp * out_dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(blocks, x_ext)
-    out = out.reshape(nbr * bs, mp)
-    return out[:, :m] if mp != m else out
-
-
-def _banded_remote_kernel(blocks_ref, x_hbm, out_hbm, xbuf, sem, obuf,
-                          osem, comm, send_sem, recv_sem, *, K: int,
-                          bw: int, W: int, R: int, NB: int, ndev: int,
-                          axis_name: str, use_barrier: bool = True):
-    """Banded SpMM with the ring halo exchange INSIDE the kernel.
-
-    Pod-scale variant of :func:`_banded_ext_kernel`: instead of an
-    XLA-level ``ppermute`` producing a pre-extended input, the kernel
-    itself pushes its boundary slabs to the ring neighbors with
-    ``make_async_remote_copy`` (ICI RDMA) during the prologue, so the
-    neighbor transfer overlaps every interior tile's DMA+MXU work and
-    only the two edge tiles wait on arrival. A neighbor barrier at the
-    kernel tail keeps successive invocations from racing the comm
-    buffers.
-
-    ``comm`` slots: [0] = predecessor's bottom slab (this shard's top
-    halo), [1] = successor's top slab (bottom halo). Ring wrap-around
-    data is mathematically inert: the out-of-range band slots hold zero
-    blocks (finite garbage x zero = zero).
-    """
-    bs = blocks_ref.shape[1]
-    tile = pl.program_id(0)
-    ntiles = pl.num_programs(0)
-    NBO = _N_OUT_BUFFERS
-    D = NB - 1
-    nbr_l = ntiles * R
-    me = jax.lax.axis_index(axis_name)
-    nd = jnp.asarray(ndev, me.dtype)
-    right = jax.lax.rem(me + 1, nd)
-    left = jax.lax.rem(me - 1 + nd, nd)
-
-    def send_bottom():
-        return pltpu.make_async_remote_copy(
-            x_hbm.at[pl.ds((nbr_l - bw) * bs, bw * bs), :], comm.at[0],
-            send_sem.at[0], recv_sem.at[0], device_id=right,
-            device_id_type=pltpu.DeviceIdType.LOGICAL)
-
-    def send_top():
-        return pltpu.make_async_remote_copy(
-            x_hbm.at[pl.ds(0, bw * bs), :], comm.at[1],
-            send_sem.at[1], recv_sem.at[1], device_id=left,
-            device_id_type=pltpu.DeviceIdType.LOGICAL)
-
-    V = W - bw  # local span of an edge tile's window
-
-    def edge_top(slot):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds(0, V * bs), :],
-            xbuf.at[slot, pl.ds(bw * bs, V * bs), :], sem.at[slot])
-
-    def edge_bottom(slot):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds((nbr_l - V) * bs, V * bs), :],
-            xbuf.at[slot, pl.ds(0, V * bs), :], sem.at[slot])
-
-    def interior(slot, t):
-        return pltpu.make_async_copy(
-            x_hbm.at[pl.ds((t * R - bw) * bs, W * bs), :],
-            xbuf.at[slot], sem.at[slot])
-
-    def window_start(slot, t):
-        @pl.when(t == 0)
-        def _():
-            edge_top(slot).start()
-
-        @pl.when(t == ntiles - 1)
-        def _():
-            edge_bottom(slot).start()
-
-        @pl.when((t > 0) & (t < ntiles - 1))
-        def _():
-            interior(slot, t).start()
-
-    def window_wait(slot, t):
-        @pl.when(t == 0)
-        def _():
-            edge_top(slot).wait()
-
-        @pl.when(t == ntiles - 1)
-        def _():
-            edge_bottom(slot).wait()
-
-        @pl.when((t > 0) & (t < ntiles - 1))
-        def _():
-            interior(slot, t).wait()
-
-    def out_copy(oslot, t):
-        return pltpu.make_async_copy(
-            obuf.at[oslot], out_hbm.at[pl.ds(t * R, R)], osem.at[oslot])
-
-    slot = tile % NB
-    oslot = tile % NBO
-
-    @pl.when(tile == 0)
-    def _():
-        send_bottom().start()
-        send_top().start()
-        for d in range(min(D, ntiles)):
-            window_start(d % NB, d)
-
-    @pl.when(tile + D < ntiles)
-    def _():
-        window_start((tile + D) % NB, tile + D)
-
-    @pl.when(tile >= NBO)
-    def _():
-        out_copy(oslot, tile - NBO).wait()
-
-    window_wait(slot, tile)
-
-    # Edge tiles splice the remote halo into the window (tiny VMEM move).
-    @pl.when(tile == 0)
-    def _():
-        send_bottom().wait_recv()
-        xbuf[slot, 0:bw * bs, :] = comm[0]
-
-    @pl.when(tile == ntiles - 1)
-    def _():
-        send_top().wait_recv()
-        xbuf[slot, W * bs - bw * bs:, :] = comm[1]
-
-    for i in range(R):
-        obuf[oslot, i] = jnp.dot(
-            blocks_ref[i], xbuf[slot, i * bs:(i + K) * bs, :],
-            preferred_element_type=_acc_dtype(blocks_ref.dtype),
-        ).astype(obuf.dtype)
-
-    out_copy(oslot, tile).start()
-
-    @pl.when(tile == ntiles - 1)
-    def _():
-        # Our outgoing RDMAs must have left before the buffers (and the
-        # next invocation's x) can change.
-        send_bottom().wait_send()
-        send_top().wait_send()
-        for d in range(min(NBO, ntiles)):
-            t_last = ntiles - 1 - d
-
-            @pl.when(t_last >= 0)
-            def _():
-                out_copy(t_last % NBO, t_last).wait()
-        # Neighbor barrier: both neighbors have consumed this round's
-        # comm data before anyone's next round may overwrite it.
-        # (get_barrier_semaphore is unsupported by the interpreter,
-        # which serializes invocations anyway.)
-        if use_barrier:
-            bar = pltpu.get_barrier_semaphore()
-            pltpu.semaphore_signal(
-                bar, inc=1, device_id=left,
-                device_id_type=pltpu.DeviceIdType.LOGICAL)
-            pltpu.semaphore_signal(
-                bar, inc=1, device_id=right,
-                device_id_type=pltpu.DeviceIdType.LOGICAL)
-            pltpu.semaphore_wait(bar, 2)
-
-
-def banded_remote_halo_spmm(blocks, x_local, *, bandwidth: int, ndev: int,
-                            axis_name: str, interpret: bool | None = None,
-                            out_dtype=None, collective_id: int = 7):
-    """Shard-local banded SpMM with kernel-internal ring halo RDMA.
-
-    Call under ``jax.shard_map`` over a 1-D ``axis_name`` ring of
-    ``ndev`` devices; ``blocks``/``x_local`` are the shard-local tables
-    (DIA-aligned like :func:`banded_bsr_spmm`, with GLOBAL out-of-range
-    slots zero). See :func:`_banded_remote_kernel` for the exchange.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    out_dtype = jnp.dtype(x_local.dtype if out_dtype is None else out_dtype)
-    nbr_l, bs, kbs = blocks.shape
-    K = kbs // bs
-    bw = int(bandwidth)
-    if K != 2 * bw + 1 or nbr_l % _TILE_R or nbr_l < 2 * _TILE_R:
-        raise ValueError(
-            f"banded_remote_halo_spmm needs K == 2*bw+1, nbr_l % "
-            f"{_TILE_R} == 0 and nbr_l >= {2 * _TILE_R} (at least two "
-            f"tiles per shard); got nbr_l={nbr_l}, K={K}, bw={bw}")
-    n_l, m = x_local.shape
-    mp = _lane_pad(m)
-    if mp != m:
-        x_local = jnp.pad(x_local, ((0, 0), (0, mp - m)))
-    plan = _banded_plan(nbr_l, bs, K, bw, mp, x_local.dtype.itemsize,
-                        blocks.dtype.itemsize, out_dtype.itemsize,
-                        min_tiles=2)
-    if plan is None:
-        raise ValueError("banded_remote_halo_spmm: no plan fits VMEM")
-    R, NB, W = plan
-    kernel = functools.partial(_banded_remote_kernel, K=K, bw=bw, W=W,
-                               R=R, NB=NB, ndev=ndev, axis_name=axis_name,
-                               use_barrier=not interpret)
-    out = pl.pallas_call(
-        kernel,
-        grid=(nbr_l // R,),
-        in_specs=[
-            pl.BlockSpec((R, bs, K * bs), lambda r: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((NB, W * bs, mp), x_local.dtype),
-            pltpu.SemaphoreType.DMA((NB,)),
-            pltpu.VMEM((_N_OUT_BUFFERS, R, bs, mp), out_dtype),
-            pltpu.SemaphoreType.DMA((_N_OUT_BUFFERS,)),
-            pltpu.VMEM((2, bw * bs, mp), x_local.dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        out_shape=jax.ShapeDtypeStruct((nbr_l, bs, mp), out_dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True, collective_id=collective_id),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr_l * K * bs * bs * mp,
-            bytes_accessed=(blocks.size * blocks.dtype.itemsize
-                            + (nbr_l // R) * W * bs * mp
-                            * x_local.dtype.itemsize
-                            + nbr_l * bs * mp * out_dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(blocks, x_local)
-    out = out.reshape(nbr_l * bs, mp)
-    return out[:, :m] if mp != m else out

@@ -1,32 +1,28 @@
-"""Sparse operators in TPU-friendly layouts.
+"""Sparse operators in accelerator-friendly layouts.
 
 The reference has no sparse formats at all — its only "large operator"
 story is the matrix-free callable that regenerates full rows on the fly
-(``src/davidson.f90:526-569``). A TPU framework needs real sparse storage,
-but classic CSR (variable-length rows, data-dependent loop trip counts) is
-hostile to XLA's static-shape compilation model. We therefore use two
-*padded, fixed-shape* layouts:
+(``src/davidson.f90:526-569``). An accelerator solver needs real sparse
+storage, but classic CSR (variable-length rows, data-dependent loop trip
+counts) is hostile to XLA's static-shape compilation model. We therefore
+use two *padded, fixed-shape* layouts:
 
 - **ELL** (``ELLOperator``): every row stores exactly ``L`` (column, value)
   slots, padded with ``value = 0`` pointing at the row's own index. The
-  SpMM is a chunked gather + einsum — dense, static-shape work that XLA
-  maps onto the VPU/MXU, with the chunk size bounding peak memory. This is
-  the CSR equivalent for unstructured ~k-nnz/row matrices (BASELINE
-  config 3). Performance note: truly unstructured row gathers run at the
-  TPU gather-engine rate (~6e9 nnz/s measured on v5e across every XLA
-  formulation — take / at.get / per-slot variants alike), far below the
-  streaming roofline; matrices with *any* structure should use
-  :class:`BSROperator` (banded/windowed Pallas kernel, ~2000x faster per
-  nnz) or a matrix-free operator. Unstructured ELL is the portability
+  SpMM is a chunked gather + einsum — dense, static-shape work, with the
+  chunk size bounding peak memory. This is the CSR equivalent for
+  unstructured ~k-nnz/row matrices (BASELINE config 3). Unstructured row
+  gathers run far below the streaming roofline; matrices with *any*
+  structure should use :class:`BSROperator` (banded storage, contiguous
+  reads) or a matrix-free operator. Unstructured ELL is the portability
   fallback, not the performance path.
 - **BSR** (``BSROperator``): block rows store exactly ``K`` dense
   ``bs x bs`` blocks (block-ELL). The SpMM gathers ``bs x m`` slices of
   the input block and contracts them against the stored blocks in one
-  batched MXU einsum; with ``bs`` a multiple of 8 (ideally 128) every
-  contraction is a native MXU tile. This is the format for the 10M-row
-  north-star workload and the row-sharded distributed path. An optional
-  Pallas kernel (``fortran_davidson_tpu.ops.pallas_kernels``) streams the
-  gathered blocks through VMEM with scalar-prefetched indices.
+  batched einsum. This is the format for the 10M-row north-star workload
+  and the row-sharded distributed path. DIA-banded storage can take the
+  Pallas kernel of ``fortran_davidson_tpu.ops.pallas_kernels`` (compiled
+  through Triton on a GPU), which reads each stored block once.
 
 Both operators are pytrees, so they flow through ``jit`` / ``shard_map``
 unchanged. Constructors do their index surgery host-side in numpy — that
@@ -42,6 +38,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from fortran_davidson_tpu.ops.operators import LinearOperator
+from fortran_davidson_tpu.ops.pallas_kernels import (BACKENDS, banded_spmm,
+                                                     kernel_mode,
+                                                     kernel_supported)
 from fortran_davidson_tpu.utils.errors import OperatorError, require
 
 
@@ -293,9 +292,9 @@ class SlicedELLOperator(LinearOperator):
     """Row-length-sorted sliced ELL (SELL-σ with a global sort, σ = n).
 
     The plain :class:`ELLOperator` pads EVERY row to the longest row's
-    width, and on TPU each padded slot costs real gather-engine work —
-    the measured unstructured-gather rate (~6e9 nnz/s on v5e) is per
-    gathered SLOT, padding included. Physically meaningful remainders
+    width, and each padded slot costs real gather work — unstructured
+    gather cost is per gathered SLOT, padding included. Physically
+    meaningful remainders
     (what is left after the banded split, ``split_band_remainder``) are
     extremely skewed: most rows hold zero or a couple of stray couplings
     while a handful hold many, so padded-ELL gather traffic is dominated
@@ -311,7 +310,7 @@ class SlicedELLOperator(LinearOperator):
 
     The reference's analogue is the on-the-fly dense row loop
     (``src/davidson.f90:559-567``) — it has no sparse storage at all;
-    this is the TPU-shaped answer for the unstructured tail.
+    this is the static-shape answer for the unstructured tail.
 
     Static shapes throughout: the bucket layout is fixed at construction
     (host-side numpy), so ``jit`` sees a handful of fixed-width gathers.
@@ -547,8 +546,8 @@ def _ds_slot_accumulate(parts_hi, parts_lo):
 
 
 def _two_pass_gram(op, block, vv, write_out):
-    """Two-pass composition fallback of ``matmat_with_gram``: identical
-    math (f32 gram accumulation), one extra HBM round trip of Y."""
+    """``matmat_with_gram`` as two passes: ``Y = A @ X``, then the f32
+    gram ``Vᵀ Y`` (a plain GEMM). No operator fuses the pair today."""
     y = op.matmat(block)
     g = jnp.einsum("nv,nm->vm", vv.astype(jnp.float32),
                    y.astype(jnp.float32),
@@ -565,11 +564,18 @@ class BSROperator(LinearOperator):
     ``blocks``: (nbr, bs, K*bs) — dense blocks in *row-major block*
     layout: ``blocks[r, :, k*bs:(k+1)*bs]`` is the ``bs x bs`` block at
     ``(r, block_cols[r, k])``. A whole block row contracts as ONE
-    ``(bs, K*bs) @ (K*bs, m)`` MXU matmul — large dots instead of K small
-    ones — in both the XLA einsum path and the Pallas streaming kernel
-    (``backend='pallas'``, TPU only). The layout is stored 3-D (not
-    reshaped on the fly) because a reshape inside the solver's jitted hot
-    loop materializes the whole table per iteration on TPU.
+    ``(bs, K*bs) @ (K*bs, m)`` matmul — large dots instead of K small
+    ones — in the XLA einsum path. The layout is stored 3-D (not reshaped
+    on the fly) because a reshape inside the solver's jitted hot loop can
+    materialize the whole table per iteration.
+
+    ``backend`` picks the apply path (see
+    :func:`~fortran_davidson_tpu.ops.pallas_kernels.kernel_mode`):
+    ``"xla"`` (default), ``"auto"`` (the Pallas kernel on a GPU, XLA
+    elsewhere), ``"pallas"`` (the compiled kernel; raises off a GPU) or
+    ``"pallas-interpret"``. Only DIA-banded storage with a power-of-two
+    block size >= 32 and bf16 blocks takes the kernel; every other
+    operator applies through XLA whatever the backend.
     """
 
     def __init__(self, block_cols, blocks, backend: str = "xla",
@@ -583,7 +589,7 @@ class BSROperator(LinearOperator):
                 OperatorError,
                 f"BSR needs (nbr, K) block_cols and (nbr, bs, K*bs) blocks, "
                 f"got {block_cols.shape} / {blocks.shape}")
-        require(backend in ("xla", "pallas"), OperatorError,
+        require(backend in BACKENDS, OperatorError,
                 f"unknown BSR backend {backend!r}")
         if bandwidth is not None:
             require(block_cols.shape[1] == 2 * bandwidth + 1, OperatorError,
@@ -592,10 +598,9 @@ class BSROperator(LinearOperator):
         self.block_cols = block_cols
         self.blocks = blocks
         self.backend = backend
-        # Declared block bandwidth for *window-aligned* banded storage
-        # (slot k of row r holds column clip(r-bw, 0, nbr-K)+k): enables
-        # the windowed-DMA Pallas kernel (one contiguous x fetch per row
-        # tile instead of K scattered slice fetches per row).
+        # Declared block bandwidth for DIA-aligned banded storage (slot k
+        # of row r holds column r-bw+k, zero blocks out of range): the
+        # Pallas kernel reads contiguous x rows per slot, no gather.
         self.bandwidth = None if bandwidth is None else int(bandwidth)
 
     # -- constructors ---------------------------------------------------
@@ -668,24 +673,17 @@ class BSROperator(LinearOperator):
     def matmat(self, block):
         # Mixed precision: with sub-32-bit stored blocks (bf16 operators)
         # the input block is cast DOWN for the contraction and the result
-        # accumulated/returned at the input's precision — the bandwidth/
-        # MXU win of bf16 storage without changing the solver's dtype.
+        # accumulated/returned at the input's precision — the bandwidth
+        # win of bf16 storage without changing the solver's dtype.
         target = block.dtype
         compute = self.dtype if jnp.dtype(self.dtype).itemsize < \
             jnp.dtype(target).itemsize else target
-        if self.backend == "pallas":
-            from fortran_davidson_tpu.ops.pallas_kernels import (
-                banded_bsr_spmm, banded_pallas_supported, bsr_spmm)
-            bw = self.bandwidth
-            x = block.astype(compute)
-            if bw is not None and banded_pallas_supported(
-                    self.n_block_rows, self.blocks_per_row, bw):
-                return banded_bsr_spmm(self.blocks.astype(compute), x,
-                                       bandwidth=bw, out_dtype=target)
-            # Unsupported band shapes take the general scattered-slice
-            # kernel (identical math via the stored column table).
-            return bsr_spmm(self.block_cols, self.blocks.astype(compute), x,
-                            out_dtype=target)
+        mode = kernel_mode(self.backend, kernel_supported(
+            self.block_size, self.blocks_per_row, self.bandwidth, compute))
+        if mode is not None:
+            return banded_spmm(self.blocks.astype(compute), block,
+                               bandwidth=self.bandwidth, out_dtype=target,
+                               interpret=mode == "interpret")
         nbr, bs, kbs = self.blocks.shape
         K = kbs // bs
         m = block.shape[1]
@@ -697,41 +695,11 @@ class BSROperator(LinearOperator):
         return out.reshape(nbr * bs, m).astype(target)
 
     def matmat_with_gram(self, block, v=None, *, write_out: bool = True):
-        """Fused ``Y = A @ X`` and ``G = Vᵀ Y`` (``v=None`` → V = X).
-
-        The Davidson hot pair — operator application followed by the
-        Rayleigh-Ritz projection block (reference gemms
-        ``src/davidson.f90:131,159``) — executed in ONE HBM sweep when
-        the band shape supports the fused Pallas kernel: the SpMM output
-        is contracted on the MXU while still in VMEM, so the consumer
-        costs no extra HBM round trip of Y (and with
-        ``write_out=False``, Y's write — the measured v5e bandwidth
-        bottleneck — is skipped entirely; only G returns).
-
-        Falls back to the two-pass composition on unsupported shapes/
-        backends (identical math, f32 gram accumulation).
-        """
-        target = block.dtype
-        compute = self.dtype if jnp.dtype(self.dtype).itemsize < \
-            jnp.dtype(target).itemsize else target
-        vv = block if v is None else v
-        if self.backend == "pallas":
-            from fortran_davidson_tpu.ops.pallas_kernels import (
-                banded_bsr_spmm_gram, banded_gram_supported)
-            bw = self.bandwidth
-            nbr, bs, kbs = self.blocks.shape
-            item = jnp.dtype(compute).itemsize
-            if bw is not None and banded_gram_supported(
-                    nbr, kbs // bs, bw, bs, block.shape[1], vv.shape[1],
-                    item, item,
-                    jnp.dtype(target).itemsize if write_out else 0, item,
-                    v is None):
-                out = banded_bsr_spmm_gram(
-                    self.blocks.astype(compute), block.astype(compute),
-                    None if v is None else vv.astype(compute),
-                    bandwidth=bw, write_out=write_out, out_dtype=target)
-                return out
-        return _two_pass_gram(self, block, vv, write_out)
+        """``Y = A @ X`` and ``G = Vᵀ Y`` (``v=None`` → V = X), the
+        Davidson hot pair (reference gemms ``src/davidson.f90:131,159``),
+        composed in two passes."""
+        return _two_pass_gram(self, block, block if v is None else v,
+                              write_out)
 
     def matmat_ds(self, x_hi, x_lo):
         """Compensated double-single block apply (slot-split + exact
@@ -836,7 +804,7 @@ class BSROperator(LinearOperator):
 
     def astype(self, dtype) -> "BSROperator":
         """Recast stored blocks (e.g. to bfloat16 for mixed-precision
-        solves: f32 solver iterates, bf16 operator storage/MXU)."""
+        solves: f32 solver iterates, bf16 operator storage)."""
         return BSROperator(self.block_cols, self.blocks.astype(dtype),
                            backend=self.backend, bandwidth=self.bandwidth)
 
@@ -903,8 +871,8 @@ def generate_banded_bsr(n_block_rows: int, bs: int, bandwidth: int = 1,
     # DIA-aligned block-ELL assembly: slot k of row r holds column
     # r - bw + k for EVERY row (out-of-range band positions stay zero
     # blocks; their stored column index is clipped in range for gather
-    # safety). The uniform slot rule is what makes the windowed-DMA
-    # Pallas kernel edge-free and shard_map-composable — a row's K
+    # safety). The uniform slot rule is what makes the Pallas kernel
+    # edge-free and shard_map-composable — a row's K
     # slices always sit at offset r (in local/virtual coordinates) of
     # the halo-extended input window.
     offs = np.arange(nbr)[:, None] - bw + np.arange(K)   # virtual columns
@@ -949,13 +917,15 @@ class QuantizedBandedOperator(LinearOperator):
 
     Accuracy: off-diagonal entries carry ~0.4% relative quantization
     error (int8 symmetric, per-slot scale) — bf16-class tolerances only.
-    HBM block traffic halves vs bf16 storage (quarters vs f32); the
-    scale rows + diagonal add ~3%. Build with
-    :func:`quantize_banded_int8`.
+    Block traffic halves vs bf16 storage (quarters vs f32); the scale
+    rows + diagonal add ~3%. Build with :func:`quantize_banded_int8`.
+
+    ``backend`` as for :class:`BSROperator`; the default ``"auto"`` takes
+    the Pallas kernel on a GPU and the plain DIA slot-sum elsewhere.
     """
 
     def __init__(self, qblocks, scale_rows, diag, bandwidth: int,
-                 backend: str = "pallas"):
+                 backend: str = "auto"):
         qblocks = jnp.asarray(qblocks, jnp.int8)
         scale_rows = jnp.asarray(scale_rows, jnp.float32)
         diag = jnp.asarray(diag, jnp.float32)
@@ -967,7 +937,7 @@ class QuantizedBandedOperator(LinearOperator):
                 f"/ {diag.shape}")
         require(kbs == (2 * bandwidth + 1) * bs, OperatorError,
                 "quantized banded needs DIA-aligned K == 2*bw+1 slots")
-        require(backend in ("xla", "pallas"), OperatorError,
+        require(backend in BACKENDS, OperatorError,
                 f"unknown backend {backend!r}")
         self.qblocks = qblocks
         self.scale_rows = scale_rows
@@ -994,58 +964,21 @@ class QuantizedBandedOperator(LinearOperator):
         return self.scale_rows.dtype
 
     def matmat(self, block):
-        from fortran_davidson_tpu.ops.pallas_kernels import (
-            banded_pallas_supported, banded_q_bsr_spmm)
         nbr, bs, kbs = self.qblocks.shape
-        K = kbs // bs
-        target = block.dtype
-        if self.backend == "pallas" and banded_pallas_supported(
-                nbr, K, self.bandwidth):
-            return banded_q_bsr_spmm(self.qblocks, self.scale_rows,
-                                     self.diag, block,
-                                     bandwidth=self.bandwidth,
-                                     out_dtype=target)
-        # XLA fallback (CPU / unsupported shapes): dequantize + the DIA
-        # gather path. Materializes f32 blocks — correctness only, the
-        # bandwidth win lives in the Pallas kernel.
-        deq = (self.qblocks.astype(jnp.float32)
-               * self.scale_rows[:, None, :]).astype(target)
-        bw = self.bandwidth
-        offs = (jnp.arange(nbr, dtype=jnp.int32)[:, None]
-                + jnp.arange(-bw, bw + 1, dtype=jnp.int32)[None, :])
-        cols = jnp.clip(offs, 0, nbr - 1)
-        xb = block.reshape(nbr, bs, -1)
-        gathered = jnp.take(xb, cols, axis=0).reshape(nbr, K * bs, -1)
-        # Out-of-range band slots hold zero blocks by construction, so
-        # the clipped gather is harmless.
-        out = jnp.einsum("rab,rbm->ram", deq, gathered,
-                         preferred_element_type=jnp.float32)
-        out = out + (self.diag[:, :, None].astype(jnp.float32)
-                     * xb.astype(jnp.float32))
-        return out.reshape(nbr * bs, -1).astype(target)
+        mode = kernel_mode(self.backend, kernel_supported(
+            bs, kbs // bs, self.bandwidth, jnp.int8))
+        if mode is not None:
+            return banded_spmm(self.qblocks, block, self.scale_rows,
+                               self.diag, bandwidth=self.bandwidth,
+                               interpret=mode == "interpret")
+        return _quantized_dia_apply(self.qblocks, self.scale_rows,
+                                    self.diag, block, self.bandwidth)
 
     def matmat_with_gram(self, block, v=None, *, write_out: bool = True):
-        """Fused SpMM + Gram on int8 storage (see
-        :meth:`BSROperator.matmat_with_gram`). With int8 blocks the Y
-        write is an even larger fraction of the kernel's HBM traffic, so
-        the fusion win is proportionally bigger."""
-        from fortran_davidson_tpu.ops.pallas_kernels import (
-            banded_gram_supported, banded_q_bsr_spmm_gram)
-        nbr, bs, kbs = self.qblocks.shape
-        K = kbs // bs
-        target = block.dtype
-        vv = block if v is None else v
-        x_item = jnp.dtype(block.dtype).itemsize
-        if self.backend == "pallas" and banded_gram_supported(
-                nbr, K, self.bandwidth, bs, block.shape[1], vv.shape[1],
-                x_item, 1 + 4 / bs + 4 / (K * bs),
-                jnp.dtype(target).itemsize if write_out else 0, x_item,
-                v is None):
-            return banded_q_bsr_spmm_gram(
-                self.qblocks, self.scale_rows, self.diag, block, v,
-                bandwidth=self.bandwidth, write_out=write_out,
-                out_dtype=target)
-        return _two_pass_gram(self, block, vv, write_out)
+        """Two-pass ``Y = A @ X``, ``G = Vᵀ Y`` (see
+        :meth:`BSROperator.matmat_with_gram`)."""
+        return _two_pass_gram(self, block, block if v is None else v,
+                              write_out)
 
     def matmat_ds(self, x_hi, x_lo):
         """Compensated double-single apply on int8 storage.
@@ -1055,7 +988,7 @@ class QuantizedBandedOperator(LinearOperator):
 
         - per band slot, the INTEGER contraction ``Q_k @ x`` runs first
           (int8 values are exact in every float format — under HIGHEST
-          precision each bf16 MXU pass carries them exactly) and the
+          precision the contraction carries them exactly) and the
           per-slot scale multiplies afterwards via exact ``two_prod``,
           so the only uncompensated rounding is the integer matmul's
           f32 accumulation, scaled DOWN by the tiny per-slot scale
@@ -1137,6 +1070,37 @@ class QuantizedBandedOperator(LinearOperator):
         return obj
 
 
+def _quantized_dia_apply(qblocks, scale_rows, diag, x, bw: int,
+                         halo: bool = False):
+    """Plain XLA apply of int8 DIA-banded storage: the gather-free slot
+    sum. Per band slot one batched ``(bs, bs) @ (bs, m)`` einsum of the
+    int8 blocks (converted to f32) against contiguous rows of x, scaled
+    by the slot's scale, plus the exact diagonal term. With ``halo=True``
+    x carries ``bw`` halo block rows on each side (the row-sharded local
+    slab) and every slot slice is in range; otherwise out-of-range slots
+    read zero padding (their blocks are zero).
+
+    The kernel's reference: same products and scales, other summation
+    order.
+    """
+    nbr, bs, kbs = qblocks.shape
+    K = kbs // bs
+    m = x.shape[1]
+    xb = x.astype(jnp.float32).reshape(-1, bs, m)
+    if halo:
+        slices = [xb[k:k + nbr] for k in range(K)]
+    else:
+        slices = _slot_slices_dia(xb, bw, K)
+    out = diag[:, :, None] * slices[bw]
+    for k in range(K):
+        part = jnp.einsum("rab,rbm->ram",
+                          qblocks[:, :, k * bs:(k + 1) * bs].astype(
+                              jnp.float32), slices[k],
+                          preferred_element_type=jnp.float32)
+        out = out + scale_rows[:, k * bs][:, None, None] * part
+    return out.reshape(nbr * bs, m).astype(x.dtype)
+
+
 def _dia_block_cols(nbr: int, bw: int):
     offs = (np.arange(nbr)[:, None] - bw + np.arange(2 * bw + 1))
     return jnp.asarray(np.clip(offs, 0, nbr - 1), jnp.int32)
@@ -1172,17 +1136,15 @@ def quantize_banded_int8(op: BSROperator) -> QuantizedBandedOperator:
 def generate_banded_bsr_quantized(n_block_rows: int, bs: int,
                                   bandwidth: int = 1,
                                   coupling: float = 1e-3, seed: int = 0,
-                                  backend: str = "xla",
+                                  backend: str = "auto",
                                   ) -> QuantizedBandedOperator:
-    """Generate + int8-quantize entirely on the HOST for beyond-HBM
-    scales.
+    """Generate + int8-quantize entirely on the HOST.
 
     ``quantize_banded_int8(generate_banded_bsr(...))`` stages the full
     f32 block table on the device first — 15.4 GB at the 10M-row
-    north-star shape, more than one v5e's HBM. This constructor runs
-    the identical assembly and quantization math in numpy so only the
-    int8 blocks + f32 scales/diagonal ship to the device (4x smaller:
-    the whole BASELINE north-star banded matrix fits ONE chip).
+    north-star shape. This constructor runs the identical assembly and
+    quantization math in numpy so only the int8 blocks + f32
+    scales/diagonal ship to the device (4x smaller).
     Bit-identical to the device path (pinned by tests/test_quantized.py).
     """
     rng = np.random.default_rng(seed)
@@ -1231,15 +1193,14 @@ def generate_banded_bsr_quantized(n_block_rows: int, bs: int,
 class HybridBandedOperator(LinearOperator):
     """Band + remainder split of an unstructured sparse operator.
 
-    Unstructured row gathers run at the TPU gather-engine rate (~6e9
-    nnz/s on v5e — orders of magnitude below the streaming kernels), but
-    physically meaningful operators concentrate their mass near the
-    diagonal. This operator applies the near-diagonal part through the
-    DIA banded Pallas/einsum path and only the off-band remainder through
+    Unstructured row gathers run orders of magnitude below streaming
+    reads, but physically meaningful operators concentrate their mass
+    near the diagonal. This operator applies the near-diagonal part
+    through the DIA banded path and only the off-band remainder through
     the ELL gather path:
 
         A = Band(A)  +  Remainder(A)
-            (fast, ~2e13 nnz/s)   (slow, but now only the tail)
+            (streaming)   (gathers, but only the tail)
 
     Build with :func:`split_band_remainder`.
     """
@@ -1342,8 +1303,8 @@ def split_band_remainder(rows, cols, vals, n: int, *, block_size: int = 128,
     """Split COO triplets into a DIA banded BSR part plus a sparse remainder.
 
     Entries with ``|i//bs - j//bs| <= bandwidth`` land in the banded part
-    (dense ``bs x bs`` blocks, DIA-aligned slots — the windowed Pallas
-    kernel's layout); everything else goes to the padded-ELL remainder.
+    (dense ``bs x bs`` blocks, DIA-aligned slots — the Pallas kernel's
+    layout); everything else goes to the padded-ELL remainder.
     ``n`` is padded up to a multiple of ``block_size`` internally; callers
     see the padded dimension via ``op.shape``.
 

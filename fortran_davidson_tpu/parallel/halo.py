@@ -1,7 +1,7 @@
 """Banded-BSR operator with explicit halo exchange (`shard_map` + ppermute).
 
 The north-star workload is a 10M-row banded block-sparse matrix
-row-partitioned over a pod slice. For that structure the generic sharded
+row-partitioned over several devices. For that structure the generic sharded
 gather (``parallel.sharded``) would all-gather the full ``(n, m)`` input
 block even though each device only needs ``bandwidth * bs`` boundary rows
 from each neighbor. This module is the explicit-collective alternative:
@@ -9,12 +9,11 @@ from each neighbor. This module is the explicit-collective alternative:
 - each device owns a contiguous slab of block rows (operator tables and
   basis rows sharded identically);
 - the SpMM under :func:`jax.shard_map` sends only the boundary slabs to
-  the two ring neighbors with ``ppermute`` (ICI neighbor traffic — no
-  all-gather), and
-- the *interior* contraction (block columns the device already owns) has
-  no data dependence on the ppermutes, so XLA overlaps the neighbor
-  transfer with the bulk of the MXU work — the structural cousin of
-  ring-attention-style compute/communication overlap.
+  the two ring neighbors with ``ppermute`` (neighbor traffic, which XLA
+  hands to NCCL on GPUs — no all-gather), and
+- the shard-local contraction runs on the halo-extended slab, through the
+  Pallas kernel (``backend`` as for
+  :class:`~fortran_davidson_tpu.ops.sparse.BSROperator`) or plain XLA.
 
 The reference's entire analogue is the OpenMP row loop at
 ``src/davidson.f90:559-567``.
@@ -27,7 +26,11 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from fortran_davidson_tpu.ops.operators import LinearOperator
-from fortran_davidson_tpu.ops.sparse import BSROperator
+from fortran_davidson_tpu.ops.pallas_kernels import (BACKENDS, banded_spmm,
+                                                     kernel_mode,
+                                                     kernel_supported)
+from fortran_davidson_tpu.ops.sparse import (BSROperator,
+                                             _quantized_dia_apply)
 from fortran_davidson_tpu.parallel.mesh import ROWS_AXIS, row_sharding
 from fortran_davidson_tpu.utils.errors import OperatorError, require
 
@@ -61,7 +64,7 @@ class HaloBSROperator(LinearOperator):
                 row_sharding(mesh, 2, axis))
             blocks = jax.device_put(jnp.asarray(blocks),
                                     row_sharding(mesh, 3, axis))
-        require(backend in ("xla", "pallas", "pallas-remote"), OperatorError,
+        require(backend in BACKENDS, OperatorError,
                 f"unknown halo backend {backend!r}")
         self.block_cols = block_cols
         self.blocks = blocks
@@ -102,39 +105,22 @@ class HaloBSROperator(LinearOperator):
         fwd = [(d, (d + 1) % ndev) for d in range(ndev)]
         bwd = [(d, (d - 1) % ndev) for d in range(ndev)]
 
-        # Shard-local Pallas contraction (pod production path): DIA
-        # storage means row r of the halo-extended local window always
-        # contracts at offset r — the windowed-DMA kernel applies
-        # unchanged per shard.
-        use_pallas = (self.backend in ("pallas", "pallas-remote")
-                      and K == 2 * bw + 1 and nbr_l % 8 == 0
-                      and (self.backend != "pallas-remote"
-                           or nbr_l >= 16))  # remote: >= 2 tiles/shard
+        compute = (self.dtype if jnp.dtype(self.dtype).itemsize
+                   < jnp.dtype(block.dtype).itemsize else block.dtype)
+        # DIA storage: row r of the halo-extended local slab contracts at
+        # offset r, so the single-device kernel applies unchanged per
+        # shard.
+        mode = kernel_mode(self.backend, kernel_supported(
+            bs, K, bw, compute))
 
-        def local_spmm_remote(blks, x):
-            # Kernel-internal ring RDMA: no XLA-level ppermute at all —
-            # the Pallas kernel pushes boundary slabs to the neighbors
-            # itself, overlapped with the interior tiles' work.
-            from fortran_davidson_tpu.ops.pallas_kernels import \
-                banded_remote_halo_spmm
-            compute = (blks.dtype if jnp.dtype(blks.dtype).itemsize
-                       < jnp.dtype(x.dtype).itemsize else x.dtype)
-            return banded_remote_halo_spmm(
-                blks.astype(compute), x.astype(compute), bandwidth=bw,
-                ndev=ndev, axis_name=axis, out_dtype=x.dtype)
-
-        def local_spmm_pallas(blks, x):
-            from fortran_davidson_tpu.ops.pallas_kernels import \
-                banded_ext_bsr_spmm
+        def local_spmm_kernel(blks, x):
             halo = bw * bs
             from_prev = jax.lax.ppermute(x[-halo:], axis, fwd)
             from_next = jax.lax.ppermute(x[:halo], axis, bwd)
             x_ext = jnp.concatenate([from_prev, x, from_next])
-            compute = (blks.dtype if jnp.dtype(blks.dtype).itemsize
-                       < jnp.dtype(x.dtype).itemsize else x.dtype)
-            return banded_ext_bsr_spmm(blks.astype(compute),
-                                       x_ext.astype(compute),
-                                       bandwidth=bw, out_dtype=x.dtype)
+            return banded_spmm(blks.astype(compute), x_ext, bandwidth=bw,
+                               halo=True, out_dtype=x.dtype,
+                               interpret=mode == "interpret")
 
         def local_spmm(cols, blks, x):
             # cols: (nbr_l, K) global block-column ids; x: (nbr_l*bs, m).
@@ -172,13 +158,11 @@ class HaloBSROperator(LinearOperator):
             return out.reshape(nbr_l * bs, m)
 
         spec2 = P(axis, None)
-        if use_pallas:
-            fn = (local_spmm_remote if self.backend == "pallas-remote"
-                  else local_spmm_pallas)
+        if mode is not None:
             # check_vma=False: pallas_call outputs carry no varying-mesh
             # annotation yet.
             return jax.shard_map(
-                fn, mesh=self.mesh,
+                local_spmm_kernel, mesh=self.mesh,
                 in_specs=(P(axis, None, None), spec2),
                 out_specs=spec2, check_vma=False,
             )(self.blocks, block)
@@ -233,14 +217,14 @@ class HaloQuantizedOperator(LinearOperator):
     int8 off-diagonal blocks + per-slot f32 scales + exact f32 diagonal,
     all row-sharded; the SpMM ppermutes only the ``bandwidth * bs``
     boundary rows to the ring neighbors and contracts the halo-extended
-    local slab — through the int8 Pallas kernel on TPU
-    (``banded_q_ext_bsr_spmm``) or a dequantized einsum elsewhere.
+    local slab — through the Pallas kernel (``backend="auto"``: on a GPU)
+    or the plain DIA slot-sum.
     Same accuracy contract as the single-chip quantized operator
     (bf16-class; diagonal/offdiag exact).
     """
 
     def __init__(self, qblocks, scale_rows, diag, bandwidth: int,
-                 mesh: Mesh, axis: str = ROWS_AXIS, backend: str = "pallas",
+                 mesh: Mesh, axis: str = ROWS_AXIS, backend: str = "auto",
                  _placed: bool = False):
         nbr, bs, kbs = qblocks.shape
         ndev = mesh.shape[axis]
@@ -251,7 +235,7 @@ class HaloQuantizedOperator(LinearOperator):
                 "halo exchange only reaches ring neighbors")
         require(kbs == (2 * bandwidth + 1) * bs, OperatorError,
                 "quantized halo needs DIA-aligned K == 2*bw+1 slots")
-        require(backend in ("xla", "pallas"), OperatorError,
+        require(backend in BACKENDS, OperatorError,
                 f"unknown backend {backend!r}")
         if not _placed:
             qblocks = jax.device_put(jnp.asarray(qblocks, jnp.int8),
@@ -301,7 +285,8 @@ class HaloQuantizedOperator(LinearOperator):
 
         fwd = [(d, (d + 1) % ndev) for d in range(ndev)]
         bwd = [(d, (d - 1) % ndev) for d in range(ndev)]
-        use_pallas = self.backend == "pallas" and nbr_l % 8 == 0
+        mode = kernel_mode(self.backend,
+                           kernel_supported(bs, K, bw, jnp.int8))
 
         def extend(x):
             halo = bw * bs
@@ -309,31 +294,18 @@ class HaloQuantizedOperator(LinearOperator):
             from_next = jax.lax.ppermute(x[:halo], axis, bwd)
             return jnp.concatenate([from_prev, x, from_next])
 
-        def local_q_pallas(qb, sr, dg, x):
-            from fortran_davidson_tpu.ops.pallas_kernels import \
-                banded_q_ext_bsr_spmm
-            return banded_q_ext_bsr_spmm(qb, sr, dg, extend(x),
-                                         bandwidth=bw, out_dtype=x.dtype)
-
-        def local_q_xla(qb, sr, dg, x):
-            # Dequantized DIA contraction over the extended window (the
-            # ring ends' wrapped slabs multiply zero out-of-range blocks).
-            m = x.shape[1]
-            xb = extend(x).reshape(nbr_l + 2 * bw, bs, m)
-            offs = (jnp.arange(nbr_l, dtype=jnp.int32)[:, None]
-                    + jnp.arange(K, dtype=jnp.int32)[None, :])
-            g = jnp.take(xb, offs, axis=0).reshape(nbr_l, K * bs, m)
-            deq = (qb.astype(jnp.float32) * sr[:, None, :]).astype(x.dtype)
-            out = jnp.einsum("rab,rbm->ram", deq, g,
-                             preferred_element_type=jnp.float32)
-            out = out + (dg[:, :, None].astype(jnp.float32)
-                         * x.reshape(nbr_l, bs, m).astype(jnp.float32))
-            return out.reshape(nbr_l * bs, m).astype(x.dtype)
+        def local_q(qb, sr, dg, x):
+            # The ring ends' wrapped halo slabs multiply zero
+            # out-of-range blocks.
+            if mode is None:
+                return _quantized_dia_apply(qb, sr, dg, extend(x), bw,
+                                            halo=True)
+            return banded_spmm(qb, extend(x), sr, dg, bandwidth=bw,
+                               halo=True, interpret=mode == "interpret")
 
         spec2 = P(axis, None)
-        fn = local_q_pallas if use_pallas else local_q_xla
         return jax.shard_map(
-            fn, mesh=self.mesh,
+            local_q, mesh=self.mesh,
             in_specs=(P(axis, None, None), spec2, spec2, spec2),
             out_specs=spec2, check_vma=False,
         )(self.qblocks, self.scale_rows, self.diag, block)

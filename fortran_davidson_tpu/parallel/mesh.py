@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference is a single-process library whose entire parallelism is one
-OpenMP row loop (``src/davidson.f90:559-567``); the TPU framework scales by
+OpenMP row loop (``src/davidson.f90:559-567``); this framework scales by
 row-partitioning the operator and the tall basis over a
 ``jax.sharding.Mesh``. Conventions:
 

@@ -1,12 +1,12 @@
 """Multi-host initialization and mesh construction.
 
-The TPU-native replacement for a distributed communication backend the
+The replacement for a distributed communication backend the
 reference never had (SURVEY.md §2: no MPI/NCCL/Gloo — single process).
-On a pod slice every host runs the same program:
+On a multi-host job every host runs the same program:
 
     from fortran_davidson_tpu.parallel import multihost
     mesh = multihost.initialize()          # jax.distributed + global mesh
-    res = eigensolve_sharded(A, k, mesh)   # collectives ride ICI/DCN
+    res = eigensolve_sharded(A, k, mesh)   # collectives ride NVLink/network
 
 ``initialize`` is a no-op on single-process setups (tests, one host), so
 library code can call it unconditionally.
@@ -46,8 +46,9 @@ def initialize(coordinator_address: Optional[str] = None,
                axis: str = ROWS_AXIS) -> Mesh:
     """Initialize multi-host JAX (idempotent) and return the global mesh.
 
-    With no arguments, relies on the TPU environment's automatic
-    coordinator discovery (``jax.distributed.initialize()`` defaults).
+    With no arguments, relies on ``jax.distributed.initialize()``'s
+    cluster auto-detection; where none exists, pass
+    ``coordinator_address``, ``num_processes`` and ``process_id``.
     ``initialize`` must be the process's FIRST JAX touch: probing the
     backend (even ``jax.process_count()``) before distributed init would
     initialize the local backend, after which distributed init is

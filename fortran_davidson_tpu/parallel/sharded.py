@@ -1,15 +1,15 @@
 """Row-sharded (multi-chip) Davidson solves.
 
-The scaling design follows the standard TPU recipe (pick a mesh, annotate
+The scaling design follows the standard JAX recipe (pick a mesh, annotate
 shardings, let XLA insert the collectives) rather than any explicit
 message-passing runtime — the reference has no distributed layer at all
 (single process + OpenMP, ``src/davidson.f90:559-567``), so this is where
-the TPU framework goes beyond it:
+this framework goes beyond it:
 
 - the operator's row dimension and the tall arrays ``V``/``AV``/``BV``
   (shape ``(n, m_max)``) are sharded across the ``"rows"`` mesh axis;
 - Gram products ``V^T (A V)`` contract over the sharded dimension — GSPMD
-  lowers them to local matmuls + an ICI ``psum`` (the analogue of the
+  lowers them to local matmuls + a ``psum`` (the analogue of the
   reference's ``lapack_matmul('T','N',...)`` at ``src/davidson.f90:131``);
 - the tiny projected eigenproblem stays replicated on every device;
 - DPR corrections, residuals, and basis updates are purely row-local.
@@ -30,7 +30,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from fortran_davidson_tpu.config import (DavidsonOptions, DavidsonResult,
                                          validate_initial_vectors,
-                                         merge_options, resolve_options)
+                                         merge_options, operator_nbytes,
+                                         resolve_options)
 from fortran_davidson_tpu.core.loop import get_engine
 from fortran_davidson_tpu.ops.operators import (DenseOperator,
                                                 DiagonalOperator,
@@ -185,7 +186,9 @@ def eigensolve_sharded(matrix, lowest: int, mesh: Mesh, second_matrix=None,
 
     cfg = resolve_options(opts, lowest, A.shape[0], generalized=B is not None,
                           sharded=True,
-                          shard_row_divisor=int(mesh.shape[axis]))
+                          shard_row_divisor=int(mesh.shape[axis]),
+                          operator_bytes=(operator_nbytes(A, B)
+                                          // int(mesh.shape[axis])))
     X0 = validate_initial_vectors(initial_vectors, A.shape[0],
                                   cfg.init_dim, dt)
     if X0 is not None:

@@ -18,8 +18,8 @@ largest-magnitude ("LM") merges both spectrum ends. Interior targets
 (``sigma``, and "SM" = sigma 0) use the SPECTRAL FOLD rather than
 scipy's shift-invert: Davidson runs on ``(A - σ)²`` — two operator
 applies per block, no factorization or linear solves, so the transform
-is matrix-free- and TPU-native (shift-invert's sparse LU has no
-efficient TPU analogue). Eigenvalues are recovered as Rayleigh
+is matrix-free and accelerator-friendly (shift-invert's sparse LU has
+no efficient accelerator analogue). Eigenvalues are recovered as Rayleigh
 quotients of the returned vectors and every pair is re-checked against
 the TRUE residual ``||A x - λ x||``, with warm-started re-solves at
 tightened fold tolerances until the user's ``tol`` holds — folding
@@ -147,9 +147,9 @@ def _folded_solve(op, k, sigma, tol, kw):
         # eigenvectors are arbitrary rotations mixing the two
         # A-eigenvectors. The SPAN is still right; diagonalizing
         # Q^T A Q over it separates them. The unfold runs at full f32
-        # matmul precision — the platform's default bf16 operand
-        # demotion would put ~1e-2-relative noise under theta and r,
-        # making the honest tol re-check below unpassable on TPU.
+        # matmul precision — a platform default that demotes f32
+        # operands would put ~1e-3-relative noise under theta and r,
+        # making the honest tol re-check below unpassable.
         with jax.default_matmul_precision("highest"):
             Q = jnp.linalg.qr(Xf)[0]
             AQ = op.matmat(Q)

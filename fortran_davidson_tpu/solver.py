@@ -21,7 +21,8 @@ from typing import Optional
 import jax.numpy as jnp
 
 from fortran_davidson_tpu.config import (DavidsonOptions, DavidsonResult,
-                                         merge_options, resolve_options,
+                                         merge_options, operator_nbytes,
+                                         resolve_options,
                                          validate_initial_vectors)
 from fortran_davidson_tpu.core.loop import get_engine
 from fortran_davidson_tpu.ops.operators import LinearOperator, as_operator
@@ -65,22 +66,18 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
         require(B.shape == A.shape, OperatorError,
                 f"B shape {B.shape} does not match A shape {A.shape}")
 
-    cfg = resolve_options(opts, lowest, A.shape[0], generalized=B is not None)
-    if (opts.fused_gram in ("auto", "on") and B is None and not cfg.refined
+    cfg = resolve_options(opts, lowest, A.shape[0], generalized=B is not None,
+                          operator_bytes=operator_nbytes(A, B))
+    if (opts.fused_gram == "on" and B is None and not cfg.refined
             and cfg.expansion == "lowest-k"
             and jnp.dtype(cfg.dtype) == jnp.float32
-            and hasattr(A, "matmat_with_gram")
-            # "auto" additionally requires a wide enough block shape
-            # that the kernels' mandatory 128-lane padding does not eat
-            # the fusion win: at k ~ 20 the padded expand block costs
-            # 6.4x its x bytes and the fused engine measures 0.76x vs
-            # two-pass (see DavidsonOptions.fused_gram); "on" forces it.
-            and (opts.fused_gram == "on"
-                 or (lowest >= 128 and cfg.m_max % 128 == 0))):
+            and hasattr(A, "matmat_with_gram")):
         # Incremental-H engine: the expand block's projection columns
-        # come from the operator's fused SpMM+Gram kernel (see
-        # DavidsonOptions.fused_gram). Capability is an operator
-        # property, so the flag resolves here, not in resolve_options.
+        # come from the operator's ``matmat_with_gram`` (see
+        # DavidsonOptions.fused_gram; "auto" would engage it only for an
+        # operator with a fused SpMM+Gram kernel, and none has one).
+        # Capability is an operator property, so the flag resolves here,
+        # not in resolve_options.
         import dataclasses
         cfg = dataclasses.replace(cfg, fused_gram=True)
     X0 = validate_initial_vectors(initial_vectors, A.shape[0],

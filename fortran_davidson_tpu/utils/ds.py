@@ -1,22 +1,24 @@
-"""Double-single (two-float) compensated arithmetic for TPU.
+"""Double-single (two-float) compensated arithmetic.
 
-TPU has no native float64 (v5e/v6e MXU+VPU are f32/bf16). The reference
-computes everything in real64 (``/root/reference/src/numeric_kinds.f90:10``)
-and its 1e-8 tolerances assume it. This module provides the error-free
+f32 storage and arithmetic move half the bytes of float64 (and some
+accelerators have no fast float64 at all). The reference computes
+everything in real64 (``/root/reference/src/numeric_kinds.f90:10``) and
+its 1e-8 tolerances assume it. This module provides the error-free
 transformations (Dekker/Knuth) and the *chunked compensated reductions*
 that let the solver reach 1e-6..1e-8 accuracy on f32 hardware:
 
 - ``two_sum`` / ``two_prod``: exact a+b / a*b as a (value, error) pair of
-  f32s — branch-free VPU code (Dekker splitting; no FMA dependence).
+  f32s — branch-free elementwise code (Dekker splitting; no FMA
+  dependence).
 - double-single scalars/arrays represented as a ``(hi, lo)`` pair with
   ``|lo| <= ulp(hi)``: ~48-bit effective mantissa (eps ~ 4e-15).
 - ``gram_ds``: the workhorse. A naive f32 Gram V^T V over n=10M rows
   carries a stochastic ~sqrt(n)*eps ~ 2e-4 accumulation error — the
   measured f32 convergence floor of round 1. Chunking the row axis into
-  c-row batched MXU matmuls and combining the n/c partial Grams with an
+  c-row batched matmuls and combining the n/c partial Grams with an
   exact two_sum tree bounds each rounding to its chunk's LOCAL magnitude:
   total error ~ eps * c / sqrt(n) (≈ 8e-8 at c=4096, n=1e7) — f64-grade
-  accuracy at full MXU speed (the combine is O(n/c * m^2) VPU flops).
+  accuracy at full matmul speed (the combine is O(n/c * m^2) flops).
 
 Everything is jit-safe, shard-safe (reductions stay per-chunk until the
 final tree, which XLA lowers to log-depth elementwise adds), and works in
@@ -158,9 +160,8 @@ def ds_sqrt(x: DS) -> DS:
 #
 # "cascade" (default): a sequential ``fori_loop`` of exact two_sum slab
 # accumulations over contiguous row slabs. One streaming read of the
-# inputs, no relayout — measured 43 ms -> 5 ms for a (10M, 4) Dot2 on
-# v5e (the old path's cost was dominated by TWO (n, k) -> (n/g, 128)
-# relayout copies at ~19 ms each, not by the tree).
+# inputs, no relayout (the tree path's cost is dominated by TWO
+# (n, k) -> (n/g, 128) relayout copies, not by the tree).
 #
 # "tree": the original log-depth two_sum tree. Required under GSPMD row
 # sharding: the cascade's ``dynamic_slice`` over the sharded row axis
@@ -191,7 +192,7 @@ _ROW_DIVISOR: contextvars.ContextVar = contextvars.ContextVar(
 
 # Slab rows per cascade step. Big enough that the ~150-step loop
 # amortizes XLA loop overhead at n=10M; small enough that the (B, k)
-# accumulator pair stays comfortably in VMEM-scale working sets.
+# accumulator pair stays small.
 _CASCADE_SLAB = 65536
 # Below this row count the tree is at least as fast and keeps small
 # (CPU test-scale) problems on the historical code path.
@@ -258,35 +259,14 @@ def _cascade_fold(slab_fn, n: int, width: int, dtype, B: int) -> DS:
 def _slice(x, start, size):
     return jax.lax.dynamic_slice_in_dim(x, start, size, axis=0)
 
-def _pair_contiguous() -> bool:
-    """Pairing order for the tree folds, chosen per backend.
-
-    Any pairing is an error-free transform of the same sum (every
-    rounding lands in the lo channel), but:
-
-    - XLA:CPU at its default optimization level was observed to
-      MISCOMPILE the strided ``hi[0::2]/hi[1::2]`` form when fused into
-      a large module (in-solve polish residuals corrupted at eps·λ;
-      ``--xla_backend_optimization_level=0`` or the cascade strategy
-      both fixed it) — CPU pairs CONTIGUOUS halves, which avoid that
-      fusion path.
-    - On TPU the strided order is the round-3/4 form every 10M-row
-      measurement validated; switching it to contiguous halves shifted
-      the refined north star's noise-gate admissions enough to drag the
-      stall-out from 24 to 59 iterations (measured round 5, identical
-      final residuals). TPU keeps the strided order.
-
-    Backend-dependent bits break no contract: CPU-vs-TPU trajectories
-    already differ (matmul precision), and all parity pins run per
-    backend.
-    """
-    return jax.default_backend() != "tpu"
-
-
 def _fold_leading(hi, lo):
     """Two_sum tree-fold of axis 0 down to one entry (no final renorm).
 
-    Pairing order per backend — see :func:`_pair_contiguous`.
+    Pairs CONTIGUOUS halves. Any pairing is an error-free transform of
+    the same sum (every rounding lands in the lo channel); XLA:CPU at its
+    default optimization level was observed to MISCOMPILE the strided
+    ``hi[0::2]/hi[1::2]`` form when fused into a large module (in-solve
+    polish residuals corrupted at eps·λ), which contiguous halves avoid.
 
     Under GSPMD row sharding (``_ROW_DIVISOR`` D > 1, leading axis
     divisible by D) the fold is SHARD-LOCAL: reshape to (D, r/D, ...),
@@ -296,7 +276,6 @@ def _fold_leading(hi, lo):
     would instead permute half the array across devices at the first
     level alone (see ``_ROW_DIVISOR``).
     """
-    contiguous = _pair_contiguous()
     D = _ROW_DIVISOR.get()
     r = hi.shape[0]
     if D > 1 and r >= D and r % D == 0:
@@ -309,12 +288,8 @@ def _fold_leading(hi, lo):
                 z = jnp.zeros_like(hi[:, :1])
                 hi = jnp.concatenate([hi, z], axis=1)
                 lo = jnp.concatenate([lo, z], axis=1)
-            if contiguous:
-                a, b = (hi[:, :half], hi[:, half:])
-                la, lb = (lo[:, :half], lo[:, half:])
-            else:
-                a, b = (hi[:, 0::2], hi[:, 1::2])
-                la, lb = (lo[:, 0::2], lo[:, 1::2])
+            a, b = (hi[:, :half], hi[:, half:])
+            la, lb = (lo[:, :half], lo[:, half:])
             s, e = two_sum(a, b)
             hi = s
             lo = la + lb + e
@@ -330,12 +305,8 @@ def _fold_leading(hi, lo):
         if half * 2 - k:
             hi = jnp.concatenate([hi, jnp.zeros_like(hi[:1])])
             lo = jnp.concatenate([lo, jnp.zeros_like(lo[:1])])
-        if contiguous:
-            a, b = hi[:half], hi[half:]
-            la, lb = lo[:half], lo[half:]
-        else:
-            a, b = hi[0::2], hi[1::2]
-            la, lb = lo[0::2], lo[1::2]
+        a, b = hi[:half], hi[half:]
+        la, lb = lo[:half], lo[half:]
         s, e = two_sum(a, b)
         hi = s
         lo = la + lb + e
@@ -381,11 +352,10 @@ def tall_sum_ds(x, lo=None) -> DS:
 def _tall_sum_tree(x, lo) -> DS:
     """Log-depth two_sum tree on a full-lane reshaped layout.
 
-    Arrays with a narrow minor dimension (m << 128) are lane-padded
-    ~128/m-fold in VMEM tiles, so a tree walking (n, m) arrays pays that
-    bloat at every level (measured 570 ms for (10M, 4) — vs ~12 ms for
-    a full Gram). The pair is reshaped to ``(n/g, g*m)`` (g = 128/m
-    strata interleaved), the tree runs on compact rows, and the g strata
+    Arrays with a narrow minor dimension (m << 128) can be padded
+    ~128/m-fold in tiled layouts, so a tree walking (n, m) arrays pays
+    that bloat at every level. The pair is reshaped to ``(n/g, g*m)``
+    (g = 128/m strata interleaved), the tree runs on compact rows, and the g strata
     per column fold with an exact sequential cascade at the end.
     """
     n, m = x.shape
@@ -458,22 +428,20 @@ def gram_ds(V, W=None, *, chunk: Optional[int] = None) -> DS:
     """Compensated Gram matrix ``V^T W`` (W defaults to V) as a DS pair.
 
     The row axis is cut into ``chunk``-row slabs; each slab's partial Gram
-    is a batched MXU matmul in the working dtype, and the slab results are
-    combined with the exact two_sum tree. Error ~ eps * chunk / sqrt(n)
-    instead of the naive ~ eps * sqrt(n). ``chunk`` is reduced to divide
-    n (the default 4096 handles all power-of-two-ish padded shapes).
+    is a batched matmul in the working dtype, and the slab results are
+    combined with the exact two_sum tree. Only the accumulation ACROSS
+    chunks is removed; within a chunk the partial rounds like any f32
+    GEMM. Measured on an NVIDIA H100 at n = 2**22, 24 columns (f32,
+    relative to max|G|): columns with a common offset (1 + 0.1 N(0, 1)),
+    where the across-chunk sum dominates, 8.1e-8 against 8.5e-7 for a
+    plain f32 Gram; zero-mean random columns 1.1e-6 against 4.0e-6
+    (PERF.md). ``chunk`` is reduced to divide n (the default 4096
+    handles all power-of-two-ish padded shapes).
 
-    NOTE (TPU, measured at the 10M-row north-star shape): the
-    (n, m) -> (n/c, c, m) reshape feeding the batched einsum is a
-    physical relayout (~24 ms per (10M, 44) operand, ~60% of a refined
-    solver iteration). Every reformulation that replaces the reshape
-    with in-loop slab dots (dim-0 dot_general, barriered slices, slab
-    transposes) makes XLA layout assignment hoist a padded row-major
-    copy of the WHOLE carried basis instead (2.9-32x expansion — OOM at
-    10M rows): tall narrow f32 blocks must stay column-major on this
-    toolchain, and chunked MXU grams on them pay the relayout. See
-    docs/ROADMAP.md "Layout wall" for the full analysis and ranked
-    escape routes.
+    NOTE: the (n, m) -> (n/c, c, m) reshape feeding the batched einsum
+    can be a physical relayout of the operand; the chunked carry layout
+    (``DavidsonOptions.carry_layout``) stores the carries pre-chunked
+    so it never appears.
     """
     W = V if W is None else W
     n, m = V.shape
@@ -491,14 +459,13 @@ def gram_ds_pre(Vc, Wc=None) -> DS:
     matches (same einsum, same tree) — but with no ``(n, m) ->
     (n/c, c, m)`` reshape in the graph. The chunked-carry engine
     (``carry_layout="chunked"``) stores the tall basis/caches in this
-    layout permanently, so the per-iteration relayout copy that
-    dominates the refined solver at scale (see docs/ROADMAP.md "Layout
-    wall") never happens: the array is already in the layout the Gram
+    layout permanently, so the per-iteration relayout copy never
+    happens: the array is already in the layout the Gram
     consumes.
     """
     Wc = Vc if Wc is None else Wc
-    # precision=HIGHEST: on TPU the default einsum demotes f32 operands
-    # to bf16 passes — that would put an eps_bf16 floor under everything.
+    # precision=HIGHEST: a default that demotes f32 operands (TF32)
+    # would put a 2^-11 floor under everything.
     partial = jnp.einsum("kcm,kcp->kmp", Vc, Wc,
                          preferred_element_type=Vc.dtype,
                          precision=jax.lax.Precision.HIGHEST)
@@ -524,12 +491,12 @@ def col_norms_ds(X, *, chunk: Optional[int] = None):
 def dot_cols_ds(X, Y) -> DS:
     """Fully compensated per-column dots diag(X^T Y) (Dot2 quality).
 
-    Unlike :func:`gram_ds` (chunked MXU — right for positive-dominant
+    Unlike :func:`gram_ds` (chunked matmuls — right for positive-dominant
     Gram sums), this pays for exact elementwise products (two_prod) and
     exact summation, so it stays accurate even under heavy cancellation
     (Rayleigh numerators ``x^T (A - σB) x``, deflation overlaps). Pure
-    VPU; use on (n, k) column blocks, not wide bases. On the cascade
-    strategy the products are formed inside the slab loop — the (n, k)
+    elementwise work; use on (n, k) column blocks, not wide bases. On the
+    cascade strategy the products are formed inside the slab loop — the (n, k)
     product/error arrays never hit HBM.
     """
     n, k = X.shape

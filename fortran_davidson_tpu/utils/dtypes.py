@@ -1,8 +1,9 @@
-"""Dtype policy for the TPU-native Davidson framework.
+"""Dtype policy for the Davidson framework.
 
 The reference library computes everything in ``real64`` (``dp`` kind,
-reference ``src/numeric_kinds.f90:10``). On TPU, float64 is software
-emulated; the framework therefore supports a configurable dtype policy:
+reference ``src/numeric_kinds.f90:10``). float64 moves twice the bytes of
+float32 and runs far slower on some accelerators; the framework therefore
+supports a configurable dtype policy:
 
 - ``float64`` (default): bitwise-compatible semantics with the reference,
   required for the 1e-8 convergence parity tests. Requires ``jax_enable_x64``.

@@ -1,7 +1,7 @@
 """Error contract for the framework.
 
 The reference aborts with the failing routine's name on any LAPACK
-``info /= 0`` (``src/lapack_wrapper.f90:395-408``). The TPU build keeps the
+``info /= 0`` (``src/lapack_wrapper.f90:395-408``). This framework keeps the
 same *contract* — loud, named failures — but raises Python exceptions at
 trace/validation time and uses in-graph guards (see
 :func:`fortran_davidson_tpu.utils.dtypes.safe_denominator`) for runtime
@@ -33,6 +33,10 @@ class NumericalError(DavidsonError, ArithmeticError):
     """Raised when a numerical routine produced non-finite results — the
     eager equivalent of the reference's ``check_lapack_call`` abort
     (``src/lapack_wrapper.f90:395-408``)."""
+
+
+class MissingDependencyError(DavidsonError, ImportError):
+    """An optional package a feature needs is not installed."""
 
 
 def require(cond: bool, exc_type: type, msg: str) -> None:

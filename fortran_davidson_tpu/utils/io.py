@@ -3,7 +3,7 @@
 The reference's test harness persists vectors/matrices as whitespace
 text files and reads them back (``src/tests/test_utils.f90:118-167``:
 ``read_matrix``, ``write_vector``, ``write_matrix``); its Python
-cross-checks parse those files. The TPU framework keeps the same
+cross-checks parse those files. This framework keeps the same
 plain-text interchange format (one matrix row per line, whitespace
 separated, C ordering) so fixtures round-trip with numpy and with the
 reference's own dumps.

@@ -45,8 +45,8 @@ def generalized_eigensolver_lowest(H, lowest: int, S=None):
 
 def qr_orthonormalize(X, method: str = "cholqr2"):
     """Orthonormal basis of span(X) — DGEQRF+DORGQR semantics
-    (``src/lapack_wrapper.f90:176-236``); CholeskyQR2 by default (TPU
-    native), ``method="qr"`` for Householder."""
+    (``src/lapack_wrapper.f90:176-236``); CholeskyQR2 by default (matmul
+    shaped), ``method="qr"`` for Householder."""
     if method == "qr":
         q, _ = jnp.linalg.qr(X)
         return q

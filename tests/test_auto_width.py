@@ -2,14 +2,14 @@
 
 The reference default ``max_dim_sub = 10 * lowest``
 (``src/davidson.f90:115-119``) is kept verbatim at parity scales, but at
-large row counts the tall carries of a 10*k-wide basis cannot be
-allocated on one chip (a 200-wide f32 basis at 10M rows is ~17.6 GB of
-V+AV alone).  ``resolve_options`` now clamps the DEFAULT down the 4-wide
-lattice until the footprint model fits the per-device HBM budget,
-flooring at ``init_dim + 4`` — which at the 10M/f32/k=20 north star is
-exactly the hand-measured best single-chip width (44: 16 refined
-iterations vs 25 at width 40, docs/BENCHMARKS.md round 4).  An explicit
-``max_dim_sub`` is never touched.
+large row counts the tall carries of a 10*k-wide basis may not fit one
+device (a 200-wide f32 basis at 10M rows is ~17.6 GB of V+AV alone).
+``resolve_options`` clamps the DEFAULT down the 4-wide lattice until the
+footprint model fits the per-device memory budget, flooring at
+``init_dim + 4``. On the CPU backend (no memory stats) the budget is a
+fixed 12 GB, under which the 10M/f32/k=20 north star resolves to the
+floor, 44. Float32 defaults are also held to the widest basis measured
+to converge. An explicit ``max_dim_sub`` is never touched.
 """
 
 import pytest
@@ -95,5 +95,24 @@ class TestClampModel:
         assert gen <= std
 
     def test_budget_env_override(self, monkeypatch):
+        # float64: the memory budget is the only limit on the default.
         monkeypatch.setenv("FDT_CARRY_BUDGET_BYTES", "1e14")
-        assert _default_max_dim(20, 10_000_384) == 200
+        assert _default_max_dim(20, 10_000_384,
+                                options=dict(dtype="float64")) == 200
+
+
+class TestFloat32WidthLimit:
+    """Float32 defaults are also held to the widest basis measured to
+    converge (10M rows at m_max 64), whatever the memory budget."""
+
+    @pytest.mark.parametrize("n,sharded,expect", [
+        (10_000_384, 1, 44),     # the measured limit: floor width
+        (2_097_152, 1, 200),     # 2M rows admit m_max 220
+        (10_000_384, 8, 200),    # 1.25M rows per device
+    ])
+    def test_width_limit_ignores_memory_budget(self, monkeypatch, n,
+                                               sharded, expect):
+        monkeypatch.setenv("FDT_CARRY_BUDGET_BYTES", "1e14")
+        kw = dict(sharded=True, shard_row_divisor=sharded) if sharded > 1 \
+            else {}
+        assert _default_max_dim(20, n, **kw) == expect

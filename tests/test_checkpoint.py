@@ -307,3 +307,13 @@ class TestRefinedCheckpoint:
                                       np.asarray(ref.eigenvalues))
         # The polish ran: true residuals below the f32 one-shot floor.
         assert float(np.max(np.asarray(res.residual_norms))) < 1e-7
+
+
+def test_missing_orbax_is_a_named_error(monkeypatch, tmp_path):
+    import sys
+
+    from fortran_davidson_tpu import checkpoint
+    from fortran_davidson_tpu.utils.errors import MissingDependencyError
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    with pytest.raises(MissingDependencyError, match="orbax"):
+        checkpoint.save_state(str(tmp_path), {"it": 0})

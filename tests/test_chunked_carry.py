@@ -3,8 +3,7 @@
 The refined solver's tall carries (V, AV, BV) are stored pre-chunked as
 ``(n/c, c, m_max)`` — the layout the compensated Gram's batched einsum
 consumes — so the per-iteration ``(n, m) -> (n/c, c, m)`` relayout
-copies measured at ~24 ms per (10M, 44) operand on v5e (docs/ROADMAP.md
-"Layout wall") never appear in the compiled graph. Every consumer
+copies never appear in the compiled graph. Every consumer
 contracts with the same per-element order as the flat layout, so the
 entire trajectory must be BIT-IDENTICAL — these tests pin exactly that
 (equality, not closeness).

@@ -1,6 +1,6 @@
 """Double-single compensated arithmetic vs an f64 oracle (CPU x64).
 
-These are the numerics that let the TPU (f32-only) solver reach the
+These are the numerics that let the f32 solver reach the
 reference's real64 accuracy (``/root/reference/src/numeric_kinds.f90:10``):
 each primitive is checked for exactness, each reduction for beating the
 naive f32 error by orders of magnitude.
@@ -155,8 +155,8 @@ class TestShiftedDiagApply:
 
 
 class TestCascadeStrategy:
-    """The streaming slab-cascade reductions (the TPU hot path: one pass,
-    no relayout — measured 43 ms -> 5 ms per (10M, 4) Dot2 on v5e) must
+    """The streaming slab-cascade reductions (the default hot path: one
+    pass, no relayout) must
     match the tree strategy's accuracy class against the f64 oracle,
     including tails (n not a multiple of the slab) and cancellation."""
 

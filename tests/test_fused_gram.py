@@ -1,14 +1,7 @@
-"""Fused SpMM + Gram kernels (`banded_bsr_spmm_gram`, quantized variant).
-
-The producer→consumer fusion for the Davidson hot pair — apply the
-operator, project (``Vᵀ A V``, reference ``src/davidson.f90:131,159``) —
-in one HBM sweep. The measured v5e write engine sustains ~1/3 of read
-bandwidth, so consuming the SpMM output in VMEM (and with
-``write_out=False`` skipping the output write entirely) is the
-round-3 escape from the write-path roofline cap (docs/ROADMAP.md
-"Write path"). These tests pin interpret-mode correctness against the
-two-pass composition; the bandwidth claim is measured on hardware by
-``bench.py`` (fused detail entries).
+"""``matmat_with_gram`` on the banded operators: ``Y = A @ X`` and
+``G = Vᵀ Y`` (the Davidson hot pair — apply the operator, project;
+reference ``src/davidson.f90:131,159``), composed in two passes, pinned
+against the separate products.
 """
 
 import jax
@@ -16,9 +9,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fortran_davidson_tpu.ops.pallas_kernels import (
-    banded_bsr_spmm, banded_bsr_spmm_gram, banded_q_bsr_spmm,
-    banded_q_bsr_spmm_gram)
 from fortran_davidson_tpu.ops.sparse import (
     generate_banded_bsr, quantize_banded_int8)
 
@@ -28,193 +18,11 @@ def rng():
     return np.random.default_rng(17)
 
 
-class TestFusedKernel:
-    @pytest.mark.parametrize("nbr,bw,m,mv", [
-        (16, 1, 8, 8), (32, 2, 16, 44), (32, 7, 130, 12)])
-    def test_matches_two_pass(self, rng, nbr, bw, m, mv):
-        op = generate_banded_bsr(nbr, 8, bandwidth=bw, seed=3,
-                                 dtype=jnp.float32)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, m)), jnp.float32)
-        v = jnp.asarray(rng.standard_normal((n, mv)), jnp.float32)
-        y_ref = banded_bsr_spmm(op.blocks, x, bandwidth=bw, interpret=True)
-        g_ref = np.asarray(v).T @ np.asarray(y_ref)
-        y, g = banded_bsr_spmm_gram(op.blocks, x, v, bandwidth=bw,
-                                    interpret=True)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(g), g_ref,
-                                   rtol=1e-4, atol=1e-3)
-
-    def test_vmem_overflow_falls_back_to_two_pass(self, rng):
-        # A gram operand wide enough that the fused kernel's VMEM plan
-        # fails (v tile + accumulator) on a shape the plain SpMM handles
-        # must compose matmat + einsum, not raise (documented fallback).
-        op = generate_banded_bsr(32, 128, bandwidth=2, seed=3,
-                                 dtype=jnp.float32).with_backend("pallas")
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 256)), jnp.float32)
-        v = jnp.asarray(rng.standard_normal((n, 4096)), jnp.float32)
-        from fortran_davidson_tpu.ops.pallas_kernels import (
-            banded_gram_supported)
-        assert not banded_gram_supported(32, 5, 2, 128, 256, 4096,
-                                         4, 4, 4, 4)
-        y, g = op.matmat_with_gram(x, v)
-        y_ref = op.matmat(x)
-        g_ref = np.asarray(v).T @ np.asarray(y_ref)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=2e-5, atol=2e-5)
-        # f32 einsum vs the f64 numpy oracle at n=4096-term sums of
-        # values up to ~2e5 — atol covers cancellation near zero.
-        np.testing.assert_allclose(np.asarray(g), g_ref, rtol=2e-3,
-                                   atol=1.0)
-
-    def test_no_write_returns_gram_only(self, rng):
-        op = generate_banded_bsr(32, 8, bandwidth=2, seed=3,
-                                 dtype=jnp.float32)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 8)), jnp.float32)
-        v = jnp.asarray(rng.standard_normal((n, 12)), jnp.float32)
-        y_ref = banded_bsr_spmm(op.blocks, x, bandwidth=2, interpret=True)
-        g = banded_bsr_spmm_gram(op.blocks, x, v, bandwidth=2,
-                                 write_out=False, interpret=True)
-        assert g.shape == (12, 8) and g.dtype == jnp.float32
-        np.testing.assert_allclose(
-            np.asarray(g), np.asarray(v).T @ np.asarray(y_ref),
-            rtol=1e-4, atol=1e-3)
-
-    def test_self_gram_is_projection(self, rng):
-        """v=None → G = Xᵀ A X, the Rayleigh-Ritz projected block."""
-        op = generate_banded_bsr(16, 8, bandwidth=1, seed=5,
-                                 dtype=jnp.float32)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 8)), jnp.float32)
-        g = banded_bsr_spmm_gram(op.blocks, x, bandwidth=1,
-                                 write_out=False, interpret=True)
-        h_ref = np.asarray(x).T @ np.asarray(op.matmat(x))
-        np.testing.assert_allclose(np.asarray(g), h_ref,
-                                   rtol=1e-4, atol=1e-3)
-
-    def test_bf16_operands_f32_gram(self, rng):
-        op = generate_banded_bsr(16, 8, bandwidth=1, seed=7,
-                                 dtype=jnp.bfloat16)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 8)), jnp.bfloat16)
-        y, g = banded_bsr_spmm_gram(op.blocks, x, bandwidth=1,
-                                    interpret=True, out_dtype=jnp.float32)
-        assert g.dtype == jnp.float32
-        h_ref = (np.asarray(x, np.float32).T
-                 @ np.asarray(op.matmat(x), np.float32))
-        np.testing.assert_allclose(np.asarray(g), h_ref,
-                                   rtol=3e-2, atol=3e-2)
-
-
-class TestVIsXGram:
-    """``v=None`` reads the gram operand from the window buffer's center
-    rows — x streams from HBM exactly once (round 4). Pins: identical
-    results to the explicit ``v=x`` kernel, the R=32 plan tier engages
-    for the pure-read variant, and padded widths stay correct."""
-
-    def test_matches_explicit_v(self, rng):
-        op = generate_banded_bsr(64, 8, bandwidth=2, seed=23,
-                                 dtype=jnp.float32)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 8)), jnp.float32)
-        g_self = banded_bsr_spmm_gram(op.blocks, x, bandwidth=2,
-                                      write_out=False, interpret=True)
-        g_expl = banded_bsr_spmm_gram(op.blocks, x, x, bandwidth=2,
-                                      write_out=False, interpret=True)
-        # R=32 (self) vs R=16 (explicit) regroups the f32 gram
-        # accumulation — last-ulp differences only.
-        np.testing.assert_allclose(np.asarray(g_self), np.asarray(g_expl),
-                                   rtol=1e-5, atol=1e-5)
-
-    def test_r32_plan_engages_for_pure_read_self_gram(self):
-        from fortran_davidson_tpu.ops.pallas_kernels import _gram_plan
-        # nbr divisible by 32: the v_is_x nowrite plan prefers R=32
-        # (fewer, deeper window DMAs); the explicit-v / write variants
-        # stay on the 16-tier.
-        plan_self = _gram_plan(64, 8, 5, 2, 8, 8, 4, 4, 0, 4, True)
-        assert plan_self is not None and plan_self[0] == 32
-        plan_expl = _gram_plan(64, 8, 5, 2, 8, 8, 4, 4, 0, 4, False)
-        assert plan_expl is not None and plan_expl[0] == 16
-        plan_write = _gram_plan(64, 8, 5, 2, 8, 8, 4, 4, 4, 4, True)
-        assert plan_write is not None and plan_write[0] == 16
-        # nbr not divisible by 32 falls back inside the same call.
-        plan_48 = _gram_plan(48, 8, 5, 2, 8, 8, 4, 4, 0, 4, True)
-        assert plan_48 is not None and plan_48[0] == 16
-
-    def test_write_out_and_padded_m(self, rng):
-        op = generate_banded_bsr(64, 8, bandwidth=1, seed=29,
-                                 dtype=jnp.float32)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 130)), jnp.float32)
-        y, g = banded_bsr_spmm_gram(op.blocks, x, bandwidth=1,
-                                    interpret=True)
-        y_ref = banded_bsr_spmm(op.blocks, x, bandwidth=1, interpret=True)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(
-            np.asarray(g), np.asarray(x).T @ np.asarray(y_ref),
-            rtol=1e-4, atol=1e-2)
-
-    def test_quantized_self_gram_matches_explicit(self, rng):
-        op = generate_banded_bsr(64, 8, bandwidth=2, seed=31,
-                                 dtype=jnp.float32)
-        qop = quantize_banded_int8(op)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 8)), jnp.float32)
-        g_self = banded_q_bsr_spmm_gram(
-            qop.qblocks, qop.scale_rows, qop.diag, x, bandwidth=2,
-            write_out=False, interpret=True)
-        g_expl = banded_q_bsr_spmm_gram(
-            qop.qblocks, qop.scale_rows, qop.diag, x, x, bandwidth=2,
-            write_out=False, interpret=True)
-        # Different tile heights regroup the f32 accumulation (see
-        # test_matches_explicit_v); entries reach ~1.3e5, so eps-level
-        # regrouping shows up at ~1e-2 absolute.
-        np.testing.assert_allclose(np.asarray(g_self), np.asarray(g_expl),
-                                   rtol=1e-5, atol=2e-2)
-        y, g = banded_q_bsr_spmm_gram(
-            qop.qblocks, qop.scale_rows, qop.diag, x, bandwidth=2,
-            interpret=True)
-        y_ref = banded_q_bsr_spmm(qop.qblocks, qop.scale_rows, qop.diag,
-                                  x, bandwidth=2, interpret=True)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=2e-5, atol=2e-5)
-        # write (R=16) vs nowrite (R=32) regroup the f32 gram too.
-        np.testing.assert_allclose(np.asarray(g), np.asarray(g_self),
-                                   rtol=1e-5, atol=2e-2)
-
-
-class TestQuantizedFusedKernel:
-    def test_matches_two_pass(self, rng):
-        op = generate_banded_bsr(32, 8, bandwidth=2, seed=11,
-                                 dtype=jnp.float32)
-        qop = quantize_banded_int8(op)
-        n = op.shape[0]
-        x = jnp.asarray(rng.standard_normal((n, 8)), jnp.float32)
-        v = jnp.asarray(rng.standard_normal((n, 12)), jnp.float32)
-        y_ref = banded_q_bsr_spmm(qop.qblocks, qop.scale_rows, qop.diag, x,
-                                  bandwidth=2, interpret=True)
-        y, g = banded_q_bsr_spmm_gram(qop.qblocks, qop.scale_rows, qop.diag,
-                                      x, v, bandwidth=2, interpret=True)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(
-            np.asarray(g), np.asarray(v).T @ np.asarray(y_ref),
-            rtol=1e-4, atol=1e-2)
-        g2 = banded_q_bsr_spmm_gram(qop.qblocks, qop.scale_rows, qop.diag,
-                                    x, v, bandwidth=2, write_out=False,
-                                    interpret=True)
-        np.testing.assert_allclose(np.asarray(g2), np.asarray(g),
-                                   rtol=1e-6, atol=1e-6)
-
-
 class TestOperatorAPI:
     def test_bsr_fused_matches_composition(self, rng):
-        op = generate_banded_bsr(32, 8, bandwidth=2, seed=13,
-                                 dtype=jnp.float32).with_backend("pallas")
+        op = generate_banded_bsr(32, 16, bandwidth=2, seed=13,
+                                 dtype=jnp.float32).with_backend(
+                                     "pallas-interpret")
         n = op.shape[0]
         x = jnp.asarray(rng.standard_normal((n, 8)), jnp.float32)
         v = jnp.asarray(rng.standard_normal((n, 12)), jnp.float32)

@@ -1,7 +1,7 @@
 """Incremental-H (fused SpMM+Gram) Davidson engine.
 
-Round-5 verdict item: the fused ``matmat_with_gram`` kernel is consumed
-by the solver loop itself, not only by the bench sweep. The engine
+The operators' ``matmat_with_gram`` (SpMM + Gram) is consumed by the
+solver loop itself. The engine
 carries the projected matrix H = VᵀAV in the loop state: seeded with one
 full Gram, extended at every expansion by the fused kernel's
 ``G = Vᵀ(AQ)`` block (computed in the same operator sweep that produces
@@ -111,9 +111,8 @@ class TestFusedEngine:
 
 
 class TestAutoWidthGate:
-    """fused_gram='auto' engages only at block widths where the
-    kernels' mandatory 128-lane padding doesn't eat the fusion win
-    (measured 0.76x at k=20/m_max=64 on v5e — BENCH_r05 fused_ab)."""
+    """fused_gram='auto' engages only for an operator with a fused
+    SpMM+Gram kernel — none has one, so it never engages."""
 
     def test_auto_stays_two_pass_at_narrow_k(self):
         # k=4: the solver must NOT flip fused_gram on (trajectory equals

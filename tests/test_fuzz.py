@@ -14,7 +14,10 @@ import scipy.linalg
 
 import fortran_davidson_tpu as fdt
 from fortran_davidson_tpu.models.generators import generate_diagonal_dominant
-from fortran_davidson_tpu.ops.sparse import generate_banded_bsr
+from fortran_davidson_tpu.ops import pallas_kernels as pk
+from fortran_davidson_tpu.ops import sparse
+from fortran_davidson_tpu.ops.sparse import (generate_banded_bsr,
+                                             quantize_banded_int8)
 
 
 def _cases():
@@ -55,17 +58,26 @@ def test_random_config(seed, n, k, method, expansion, gen, max_dim):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_random_banded_f32(seed):
+def test_random_banded_f32(seed, monkeypatch):
+    # Odd seeds: int8 blocks at bs >= 32 through the interpret-mode
+    # kernel (the shapes it takes); even seeds: f32 blocks through XLA.
+    kernel = bool(seed % 2)
     rng = np.random.default_rng(seed)
     nbr = int(rng.integers(2, 8)) * 8
-    bs = int(rng.choice([8, 16]))
+    bs = int(rng.choice([32, 64] if kernel else [8, 16]))
     bw = int(rng.integers(1, 3))
     op = generate_banded_bsr(nbr, bs, bandwidth=bw, coupling=1e-3,
                              seed=seed, dtype=jnp.float32)
-    if seed % 2:
-        op = op.with_backend("pallas")
+    calls = []
+    if kernel:
+        op = quantize_banded_int8(op).with_backend("pallas-interpret")
+        monkeypatch.setattr(sparse, "banded_spmm",
+                            lambda *a, **kw: calls.append(kw)
+                            or pk.banded_spmm(*a, **kw))
     res = fdt.eigensolve(op, 3, tolerance=1e-4, dtype="float32",
                          max_iterations=100)
+    assert bool(calls) == kernel
+    assert all(kw["interpret"] for kw in calls)
     res.block_until_ready()
     vals = np.asarray(res.eigenvalues)
     assert np.all(np.isfinite(vals))

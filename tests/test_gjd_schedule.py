@@ -2,7 +2,7 @@
 
 The reference solves every GJD correction equation *exactly* with DSYSV
 (``src/davidson.f90:719-732``) — inexactness-blind O(n^3) work per pair
-per outer iteration. The TPU engine's inner MINRES gets two stopping
+per outer iteration. This engine's inner MINRES gets two stopping
 upgrades instead:
 
 1. an outer-target-linked absolute forcing term (inexact JD): the inner

@@ -1,4 +1,4 @@
-"""Band + remainder hybrid operator (unstructured sparse on TPU done right).
+"""Band + remainder hybrid operator (stream the band, gather the rest).
 
 Splits locality-bearing sparse matrices into a DIA banded part (fast
 streaming kernel) plus a small ELL remainder (gather path). Oracle:
@@ -11,7 +11,10 @@ import pytest
 import scipy.linalg
 
 import fortran_davidson_tpu as fdt
+from fortran_davidson_tpu.ops import pallas_kernels as pk
+from fortran_davidson_tpu.ops import sparse
 from fortran_davidson_tpu.ops.sparse import (ELLOperator,
+                                             HybridBandedOperator,
                                              generate_local_sparse,
                                              split_band_remainder)
 
@@ -100,15 +103,25 @@ class TestSplit:
         evecs = np.asarray(res.eigenvectors)
         assert np.abs(evecs[n:]).max() < 1e-8
 
-    def test_pallas_backend_switch(self, local_coo, rng):
+    def test_pallas_backend_switch(self, local_coo, rng, monkeypatch):
+        # bf16 band blocks at bs = 32: a shape the kernel takes, so the
+        # interpret-mode kernel (not XLA) applies the band.
         rows, cols, vals = local_coo
-        hyb = split_band_remainder(rows, cols, vals, 600, block_size=8,
+        hyb = split_band_remainder(rows, cols, vals, 600, block_size=32,
                                    bandwidth=2, dtype=jnp.float32)
-        p = hyb.with_backend("pallas")
+        hyb = HybridBandedOperator(hyb.band.astype(jnp.bfloat16),
+                                   hyb.remainder)
+        p = hyb.with_backend("pallas-interpret")
+        calls = []
+        monkeypatch.setattr(sparse, "banded_spmm",
+                            lambda *a, **kw: calls.append(kw)
+                            or pk.banded_spmm(*a, **kw))
         X = jnp.asarray(rng.standard_normal((hyb.shape[0], 4)), jnp.float32)
-        np.testing.assert_allclose(np.asarray(p.matmat(X)),
-                                   np.asarray(hyb.matmat(X)),
+        got = np.asarray(p.matmat(X))
+        assert [kw["interpret"] for kw in calls] == [True]
+        np.testing.assert_allclose(got, np.asarray(hyb.matmat(X)),
                                    rtol=3e-5, atol=3e-5)
+        assert len(calls) == 1        # the XLA apply took no kernel
 
     def test_pure_band_has_no_remainder(self):
         rows, cols, vals = generate_local_sparse(640, 4, locality=2.0,

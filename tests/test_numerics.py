@@ -272,10 +272,10 @@ class TestGJDPreconditioner:
 
 
 class TestMatmulPrecision:
-    """The solver pins XLA matmul precision for f32 solves (TPU's default
-    bf16 operand demotion poisons the Gram/Ritz/residual matmuls and the
-    GJD inner Krylov — measured divergence at 1M rows). A no-op on CPU,
-    but resolution and plumbing are testable everywhere."""
+    """The solver pins XLA matmul precision for f32 solves (a default
+    that demotes f32 operands, TF32 on GPUs, poisons the Gram/Ritz/
+    residual matmuls and the GJD inner Krylov). A no-op on CPU, but
+    resolution and plumbing are testable everywhere."""
 
     def test_resolution_defaults(self):
         from fortran_davidson_tpu.config import (DavidsonOptions,

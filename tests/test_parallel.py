@@ -187,59 +187,38 @@ class TestShardOperator:
 
 
 class TestHaloPallas:
-    """Shard-local Pallas contraction under shard_map (interpret on CPU)."""
+    """Shard-local Pallas contraction under shard_map (the kernel runs
+    under the Pallas interpreter on the CPU mesh; it takes bf16 and int8
+    blocks)."""
 
     def test_pallas_halo_matches_xla(self, mesh, rng):
-        bsr = generate_banded_bsr(64, 8, bandwidth=2, coupling=1e-3, seed=21)
-        op_x = HaloBSROperator.from_bsr(bsr, 2, mesh, backend="xla")
-        op_p = HaloBSROperator.from_bsr(bsr, 2, mesh, backend="pallas")
-        n = op_x.shape[0]
-        X = jax.device_put(jnp.asarray(rng.standard_normal((n, 6))),
-                           NamedSharding(mesh, P("rows", None)))
+        bsr = generate_banded_bsr(64, 32, bandwidth=2, coupling=1e-3,
+                                  seed=21, dtype=jnp.float32)
+        bsr = bsr.astype(jnp.bfloat16)
+        op_p = HaloBSROperator.from_bsr(bsr, 2, mesh,
+                                        backend="pallas-interpret")
+        n = op_p.shape[0]
+        X = jnp.asarray(rng.standard_normal((n, 6)), jnp.float32)
+        # Reference: the single-device apply of the same bf16 storage
+        # (x rounded to bf16 for the contraction, like the kernel).
+        ref = bsr.matmat(X)
+        X = jax.device_put(X, NamedSharding(mesh, P("rows", None)))
         np.testing.assert_allclose(np.asarray(op_p.matmat(X)),
-                                   np.asarray(op_x.matmat(X)), atol=1e-10)
+                                   np.asarray(ref), rtol=2e-5, atol=2e-5)
 
     def test_pallas_halo_solve(self, mesh):
         from fortran_davidson_tpu.parallel import eigensolve_sharded
-        bsr = generate_banded_bsr(64, 8, bandwidth=1, coupling=1e-3, seed=22)
-        op = HaloBSROperator.from_bsr(bsr, 1, mesh, backend="pallas")
-        ref = fdt.eigensolve(bsr, 3, tolerance=1e-8)
-        res = eigensolve_sharded(op, 3, mesh, tolerance=1e-8)
-        res.block_until_ready()
-        assert bool(res.converged)
-        assert int(res.iterations) == int(ref.iterations)
-        np.testing.assert_allclose(np.asarray(res.eigenvalues),
-                                   np.asarray(ref.eigenvalues), atol=1e-10)
-
-
-class TestRemoteHaloPallas:
-    """Kernel-internal ring RDMA (make_async_remote_copy) — pod-readiness
-    prototype, exercised through the Pallas interpreter on the CPU mesh."""
-
-    def test_remote_matches_xla(self, mesh, rng):
-        bsr = generate_banded_bsr(128, 8, bandwidth=2, coupling=1e-3,
-                                  seed=31, dtype=jnp.float32)
-        op_x = HaloBSROperator.from_bsr(bsr, bandwidth=2, mesh=mesh,
-                                        backend="xla")
-        op_r = HaloBSROperator.from_bsr(bsr, bandwidth=2, mesh=mesh,
-                                        backend="pallas-remote")
-        n = op_x.shape[0]
-        X = jnp.asarray(rng.standard_normal((n, 5)), jnp.float32)
-        X = jax.device_put(X, NamedSharding(mesh, P("rows", None)))
-        np.testing.assert_allclose(np.asarray(op_r.matmat(X)),
-                                   np.asarray(op_x.matmat(X)),
-                                   rtol=2e-5, atol=2e-5)
-
-    def test_remote_solve(self, mesh):
-        bsr = generate_banded_bsr(128, 8, bandwidth=1, coupling=1e-3,
-                                  seed=32, dtype=jnp.float32)
-        op = HaloBSROperator.from_bsr(bsr, bandwidth=1, mesh=mesh,
-                                      backend="pallas-remote")
+        bsr = generate_banded_bsr(64, 32, bandwidth=1, coupling=1e-3,
+                                  seed=22, dtype=jnp.float32)
+        bsr = bsr.astype(jnp.bfloat16)
+        op = HaloBSROperator.from_bsr(bsr, 1, mesh,
+                                      backend="pallas-interpret")
         ref = fdt.eigensolve(bsr, 3, tolerance=1e-5, dtype="float32")
         res = eigensolve_sharded(op, 3, mesh, tolerance=1e-5,
                                  dtype="float32")
         res.block_until_ready()
         assert bool(res.converged)
+        assert int(res.iterations) == int(ref.iterations)
         np.testing.assert_allclose(np.asarray(res.eigenvalues),
                                    np.asarray(ref.eigenvalues), atol=1e-4)
 

@@ -1,9 +1,8 @@
 """Sliced-ELL (SELL-σ) remainder format.
 
 The padded :class:`ELLOperator` gathers ``n * L_max`` slots per SpMM;
-on TPU every padded slot costs real gather-engine time (measured ~6e9
-nnz/s per SLOT on v5e). :class:`SlicedELLOperator` sorts rows by stored
-count into power-of-two-width buckets so traffic scales with actual
+every padded slot costs real gather time. :class:`SlicedELLOperator`
+sorts rows by stored count into power-of-two-width buckets so traffic scales with actual
 nnz — the round-3 answer to the unstructured-remainder tail (the
 reference's only large-operator story is the on-the-fly dense row loop,
 ``src/davidson.f90:559-567``).
